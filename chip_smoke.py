@@ -1,0 +1,853 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (written for an H100).
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+It needs a CUDA device, ``nvcc`` and nothing from the network, and imports
+nothing of JAX or of the JAX package.  Phases:
+
+ 1. environment: the card (name, power limit), torch / CUDA / nvcc versions;
+ 2. build of the kernel library from ``src/repro_torch/kernels/csrc``;
+ 3. the paged-attention kernel against its plain PyTorch version on the card
+    (decode and prefill at TinyLlama width, window, int8 / fp8 pools, a
+    pruned-looking shape, a poisoned null block), visit counts exact, and
+    its time beside the plain version, one library attention call and the
+    card's bound for the same work;
+ 4. the main path at full width: ``tinyllama-1.1b`` (22 layers, bf16, random
+    weights from a seed) served by ``repro_torch.serve.Engine``, checked by
+    teacher forcing against ``Model.forward``, and its model steps against
+    the same steps on the plain version; plus a short int8-pool run;
+ 5. times of the device code around the kernel (KV scatter, sampling, COW).
+
+Any failing phase raises, so the exit code is non-zero and no ``"ok"`` line
+is printed.  TF32 is off for matmuls and cuDNN throughout.
+
+``--quick`` cuts phase 4 to 4 layers and a few requests (for a first look at
+a new kernel); ``--profile`` adds a ``torch.profiler`` trace of one decode
+and one prefill step (device busy share, top kernels).  The default is the
+full run without the trace.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    ensure_built, expected_visits, launch_counts, paged_attention,
+    paged_prefill_attention, quantize, reset_launches)
+from repro_torch.models import build  # noqa: E402
+from repro_torch.models.attention import _scatter_kv  # noqa: E402
+from repro_torch.serve import Engine, ServeConfig  # noqa: E402
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense rates)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+
+# Tolerances of kernel vs plain version, err <= atol + rtol * |plain|.  Both
+# sides accumulate in f32, so f32 outputs differ only in summation order (up
+# to 2048 keys per row): 1e-5 absolute, as the reference's kernel tests use.
+# bf16 outputs are the same f32 sums rounded to bf16, so they differ by at
+# most one bf16 step of the value (2^-7 relative); the absolute part covers
+# values near zero.  A limit relative to the value cannot be passed by
+# outputs that are themselves far below it (long histories average to
+# |out| ~ 0.05).
+TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (2e-4, 2.0 ** -7)}
+
+
+def tol_text(dtype) -> str:
+    atol, rtol = TOL[dtype]
+    return f"{atol:g}" + (f" + {rtol:g}*|plain|" if rtol else "")
+
+
+def excess_over_tol(err, ref) -> float:
+    """Largest amount by which ``err`` exceeds the limit of ``ref``'s dtype
+    (<= 0 when every element is within it)."""
+    atol, rtol = TOL[ref.dtype]
+    return float((err - (atol + rtol * ref.float().abs())).max())
+
+
+K1_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
+K1_REPLACES = "src/repro/kernels/paged_attention/paged_attention.py:130"
+
+DEV = "cuda"
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return out.splitlines()[0]
+
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn(i)`` over ``iters`` calls, by CUDA events."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernel vs plain version
+# ---------------------------------------------------------------------------
+
+def make_case(rng, *, B, C, H, KH, D, DV, bs, NB, q_dtype, pool, kv_lens,
+              q_starts=None, poison_null=False):
+    """Pools, tables and queries for one comparison.  ``pool`` is a torch
+    dtype or "int8"/"fp8_e4m3".  Every sequence gets its own shuffled blocks
+    (block 0 stays the null block)."""
+    P = B * NB + 1
+    k = torch.from_numpy(rng.standard_normal((P, bs, KH, D), np.float32))
+    v = torch.from_numpy(rng.standard_normal((P, bs, KH, DV), np.float32))
+    if poison_null:
+        k[0] = 1e4
+        v[0] = -1e4
+    perm = rng.permutation(np.arange(1, P)).reshape(B, NB).astype(np.int32)
+    kv_lens = np.asarray(kv_lens, np.int32)
+    live = (np.arange(NB)[None, :] * bs) < kv_lens[:, None]
+    tables = np.where(live, perm, 0).astype(np.int32)   # dead entries -> null
+    q = torch.from_numpy(rng.standard_normal((B, C, H, D), np.float32))
+    case = {"tables": torch.from_numpy(tables).to(DEV),
+            "kv_lens": torch.from_numpy(kv_lens).to(DEV),
+            "q": q.to(DEV).to(q_dtype), "k_scale": None, "v_scale": None}
+    if q_starts is not None:
+        case["q_starts"] = torch.from_numpy(
+            np.asarray(q_starts, np.int32)).to(DEV)
+    k, v = k.to(DEV), v.to(DEV)
+    if isinstance(pool, str):
+        dt = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn}[pool]
+        case["k"], case["k_scale"] = quantize(k, dt)
+        case["v"], case["v_scale"] = quantize(v, dt)
+    else:
+        case["k"], case["v"] = k.to(pool), v.to(pool)
+    return case
+
+
+def run_pair(case, *, window=0, prefill=False):
+    """(kernel out, visits, plain out) for one case, synchronised."""
+    kw = dict(window=window, k_scale=case["k_scale"], v_scale=case["v_scale"])
+    if prefill:
+        args = (case["q"], case["k"], case["v"], case["tables"],
+                case["q_starts"], case["kv_lens"])
+        out, visits = paged_prefill_attention(*args, return_visits=True, **kw)
+        torch.cuda.synchronize()
+        ref = paged_prefill_attention(*args, use_kernel=False, **kw)
+    else:
+        args = (case["q"][:, 0], case["k"], case["v"], case["tables"],
+                case["kv_lens"])
+        out, visits = paged_attention(*args, return_visits=True, **kw)
+        torch.cuda.synchronize()
+        ref = paged_attention(*args, use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    return out, visits, ref
+
+
+def check_case(name, case, *, window=0, prefill=False, valid=None):
+    """Compare on the rows that stand for real tokens; demand finite values
+    everywhere (padded rows and idle sequences flow on through the model)."""
+    out, visits, ref = run_pair(case, window=window, prefill=prefill)
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError(f"{name}: kernel produced non-finite values")
+    B = out.shape[0]
+    if prefill:
+        C = out.shape[1]
+        rows = torch.arange(C, device=DEV)[None, :] < torch.as_tensor(
+            valid, device=DEV)[:, None]                      # (B, C)
+        q_starts = case["q_starts"]
+    else:
+        rows = case["kv_lens"] > 0                           # (B,)
+        q_starts = case["kv_lens"] - 1
+    err = (out.float() - ref.float()).abs()
+    if rows.any():
+        err, ref = err[rows], ref[rows]
+    else:
+        err, ref = err.new_zeros(1), ref.new_zeros(1)
+    max_err = float(err.max())
+    over = excess_over_tol(err, ref)
+    want = expected_visits(q_starts.cpu(), case["kv_lens"].cpu(),
+                           case["tables"].shape[1], case["k"].shape[1],
+                           window)
+    KH = case["k"].shape[2]
+    if not torch.equal(visits.cpu(), want[:, None].expand(B, KH)):
+        raise AssertionError(f"{name}: visit counts differ from the "
+                             f"liveness predicate")
+    status = "ok" if over <= 0 else "FAIL"
+    print(f"  {name:34s} max_abs_err {max_err:.3e} (tol {tol_text(out.dtype)})"
+          f" visits {int(visits.sum())} {status}", flush=True)
+    if over > 0:
+        raise AssertionError(f"{name}: error exceeds {tol_text(out.dtype)} "
+                             f"by {over} (max abs err {max_err})")
+    return max_err
+
+
+def ragged(rng, B, lo, hi):
+    return rng.integers(lo, hi + 1, size=B).astype(np.int32)
+
+
+def phase_kernel_checks(rng) -> float:
+    print("phase 3: paged-attention kernel vs plain PyTorch version", flush=True)
+    tl = dict(B=32, H=32, KH=4, D=64, DV=64, bs=16, NB=128)
+    worst = 0.0
+    lens = ragged(rng, 32, 1, 2048)
+    lens[0], lens[1], lens[2] = 2048, 1, 17
+    for dt in (torch.bfloat16, torch.float32):
+        c = make_case(rng, C=1, q_dtype=dt, pool=dt, kv_lens=lens, **tl)
+        worst = max(worst, check_case(f"decode {dt}".replace("torch.", ""), c))
+    for pool in ("int8", "fp8_e4m3"):
+        c = make_case(rng, C=1, q_dtype=torch.bfloat16, pool=pool,
+                      kv_lens=lens, **tl)
+        worst = max(worst, check_case(f"decode bf16 q, {pool} pool", c))
+    c = make_case(rng, C=1, q_dtype=torch.float32, pool=torch.float32,
+                  kv_lens=lens, **tl)
+    worst = max(worst, check_case("decode f32 window 100", c, window=100))
+    c = make_case(rng, C=1, q_dtype=torch.float32, pool=torch.bfloat16,
+                  kv_lens=lens, poison_null=True, **tl)
+    worst = max(worst, check_case("decode f32 q, bf16 pool, null=1e4", c))
+    idle = lens.copy()
+    idle[3:9] = 0
+    c = make_case(rng, C=1, q_dtype=torch.bfloat16, pool=torch.bfloat16,
+                  kv_lens=idle, poison_null=True, **tl)
+    worst = max(worst, check_case("decode bf16 idle rows (kv_len 0)", c))
+
+    # prefill: C = 32, ragged valid with 0 and a partial last chunk
+    starts = (ragged(rng, 32, 0, 60) * 16).astype(np.int32)
+    valid = ragged(rng, 32, 1, 32)
+    valid[0], valid[1], valid[2], starts[2] = 0, 32, 7, 0
+    starts[0] = 0                      # a wholly idle row: kv_len 0
+    valid[3], starts[3] = 0, 320       # no new tokens over a live history
+    for dt in (torch.bfloat16, torch.float32):
+        c = make_case(rng, C=32, q_dtype=dt, pool=dt, kv_lens=starts + valid,
+                      q_starts=starts, **tl)
+        worst = max(worst, check_case(
+            f"prefill C=32 {dt}".replace("torch.", ""), c, prefill=True,
+            valid=valid))
+    c = make_case(rng, C=32, q_dtype=torch.float32, pool=torch.float32,
+                  kv_lens=starts + valid, q_starts=starts,
+                  poison_null=True, **tl)
+    worst = max(worst, check_case("prefill C=32 f32 window 48, null=1e4", c,
+                                  prefill=True, valid=valid, window=48))
+    c = make_case(rng, C=32, q_dtype=torch.bfloat16, pool="int8",
+                  kv_lens=starts + valid, q_starts=starts, **tl)
+    worst = max(worst, check_case("prefill C=32 bf16 q, int8 pool", c,
+                                  prefill=True, valid=valid))
+    # main-path prefill shape: C = 128 over a longer history
+    starts128 = (ragged(rng, 32, 0, 7) * 128).astype(np.int32)
+    valid128 = ragged(rng, 32, 0, 128)
+    valid128[0] = 128
+    for dt in (torch.bfloat16, torch.float32):
+        c = make_case(rng, C=128, q_dtype=dt, pool=dt,
+                      kv_lens=starts128 + valid128, q_starts=starts128,
+                      **dict(tl, NB=80))
+        worst = max(worst, check_case(
+            f"prefill C=128 NB=80 {dt}".replace("torch.", ""), c,
+            prefill=True, valid=valid128))
+
+    # a pruned-looking shape: odd head dims, DV != D, G = 3, tiny blocks
+    pr = dict(B=5, H=6, KH=2, D=48, DV=40, bs=4, NB=40)
+    plen = ragged(rng, 5, 1, 160)
+    for pool in (torch.float32, "int8", "fp8_e4m3"):
+        c = make_case(rng, C=1, q_dtype=torch.float32, pool=pool,
+                      kv_lens=plen, **pr)
+        worst = max(worst, check_case(f"pruned decode D=48 DV=40 {pool}"
+                                      .replace("torch.", ""), c))
+    pst = ragged(rng, 5, 0, 100)
+    pva = ragged(rng, 5, 0, 9)
+    c = make_case(rng, C=9, q_dtype=torch.float32, pool=torch.float32,
+                  kv_lens=pst + pva, q_starts=pst, **pr)
+    worst = max(worst, check_case("pruned prefill C=9 window 10", c,
+                                  prefill=True, valid=pva, window=10))
+    # reduced-config shape and the widest head the kernel takes
+    c = make_case(rng, B=3, C=1, H=4, KH=1, D=16, DV=16, bs=4, NB=16,
+                  q_dtype=torch.float32, pool=torch.float32,
+                  kv_lens=[1, 33, 64])
+    worst = max(worst, check_case("reduced decode D=16 KH=1", c))
+    c = make_case(rng, B=2, C=3, H=2, KH=1, D=256, DV=200, bs=8, NB=16,
+                  q_dtype=torch.bfloat16, pool=torch.bfloat16,
+                  kv_lens=[40, 128], q_starts=[37, 125])
+    worst = max(worst, check_case("wide prefill D=256 DV=200", c,
+                                  prefill=True, valid=[3, 3]))
+    return worst
+
+
+def gathered_history(case, n_rep):
+    """Contiguous (B, H, S, D) K/V and a boolean mask for the library call
+    (gathered outside the timed region: the call is a yardstick only)."""
+    tab = case["tables"].long()
+    B, NB = tab.shape
+    bs, KH = case["k"].shape[1], case["k"].shape[2]
+    k = case["k"][tab].reshape(B, NB * bs, KH, -1).permute(0, 2, 1, 3)
+    v = case["v"][tab].reshape(B, NB * bs, KH, -1).permute(0, 2, 1, 3)
+    k = k.repeat_interleave(n_rep, dim=1).contiguous()
+    v = v.repeat_interleave(n_rep, dim=1).contiguous()
+    return k, v
+
+
+def attention_work(case, *, prefill: bool):
+    """(bytes that must cross HBM, floating-point operations) for one call,
+    from this run's lengths: every live K/V row (and scale) read once, q read
+    once, out written once, the live table entries and lengths read once."""
+    q = case["q"]
+    B, C, H, D = q.shape
+    bs, KH, DV = case["v"].shape[1:]
+    NB = case["tables"].shape[1]
+    lens = case["kv_lens"].cpu().numpy().astype(np.int64)
+    lens = np.minimum(lens, NB * bs)
+    esz = case["k"].element_size()
+    kv_bytes = int(lens.sum()) * KH * (D + DV) * esz
+    if case["k_scale"] is not None:
+        kv_bytes += int(lens.sum()) * KH * 2 * 4
+    tbl_bytes = int(np.ceil(lens / bs).sum()) * 4 + B * 8
+    io_bytes = B * C * H * (D + DV) * q.element_size()
+    if prefill:
+        starts = case["q_starts"].cpu().numpy().astype(np.int64)
+        qpos = starts[:, None] + np.arange(C)[None, :]
+        keys = np.minimum(qpos + 1, lens[:, None]).clip(min=0).sum()
+    else:
+        keys = lens.sum()
+    flops = 2 * int(keys) * H * (D + DV)
+    return kv_bytes + tbl_bytes + io_bytes, flops
+
+
+def time_kernel(name, rng, *, C, NB, prefill, iters):
+    """Time kernel, plain version and one library call at a main-path shape,
+    rotating over distinct pools so that each call finds the L2 cold, as a
+    layer of the model does."""
+    B, H, KH, D, bs = 32, 32, 4, 64, 16
+    dt = torch.bfloat16
+    if prefill:
+        starts = (ragged(rng, B, 2, 7) * 128).astype(np.int32)
+        valid = np.full(B, C, np.int32)
+        lens = starts + valid
+    else:
+        starts = None
+        lens = ragged(rng, B, 256, 1088)
+    n_rot = 4
+    cases = [make_case(rng, B=B, C=C, H=H, KH=KH, D=D, DV=D, bs=bs, NB=NB,
+                       q_dtype=dt, pool=dt, kv_lens=lens, q_starts=starts)
+             for _ in range(n_rot)]
+
+    def call(use_kernel):
+        def fn(i):
+            c = cases[i % n_rot]
+            if prefill:
+                paged_prefill_attention(c["q"], c["k"], c["v"], c["tables"],
+                                        c["q_starts"], c["kv_lens"],
+                                        use_kernel=use_kernel)
+            else:
+                paged_attention(c["q"][:, 0], c["k"], c["v"], c["tables"],
+                                c["kv_lens"], use_kernel=use_kernel)
+        return fn
+
+    # library yardstick: one scaled_dot_product_attention call per rotation
+    lib = []
+    for c in cases:
+        k, v = gathered_history(c, H // KH)
+        S = k.shape[2]
+        idx = torch.arange(S, device=DEV)[None, None, :]
+        if prefill:
+            qpos = (c["q_starts"][:, None] + torch.arange(C, device=DEV)
+                    )[:, :, None]
+            mask = (idx <= qpos) & (idx < c["kv_lens"][:, None, None])
+        else:
+            mask = (idx < c["kv_lens"][:, None, None])
+        lib.append((c["q"].permute(0, 2, 1, 3).contiguous(), k, v,
+                    mask[:, None].contiguous()))
+
+    def lib_fn(i):
+        q, k, v, mask = lib[i % n_rot]
+        F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+    out, _, ref = run_pair(cases[0], prefill=prefill)
+    err = (out.float() - ref.float()).abs()
+    max_err = float(err.max())
+    if excess_over_tol(err, ref) > 0:
+        raise AssertionError(f"{name}: max abs err {max_err} exceeds "
+                             f"{tol_text(dt)}")
+    # order: plain, kernel, kernel, plain (the two kernel runs are averaged)
+    plain_a = time_ms(call(False), iters=max(iters // 4, 3))
+    kern_a = time_ms(call(True), iters=iters)
+    kern_b = time_ms(call(True), iters=iters)
+    plain_b = time_ms(call(False), iters=max(iters // 4, 3))
+    library = time_ms(lib_fn, iters=iters)
+    nbytes, flops = attention_work(cases[0], prefill=prefill)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS[dt] * 1e3
+    entry = {
+        "name": name, "route": "cuda", "source": K1_SOURCE,
+        "replaces": K1_REPLACES, "launches": 0, "max_abs_err": max_err,
+        "ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
+        "bound_ms": max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "library_ms": library,
+        "shape": {"B": B, "C": C, "H": H, "KH": KH, "D": D, "bs": bs,
+                  "NB": NB, "dtype": "bfloat16",
+                  "mean_kv_len": float(np.mean(lens))},
+        "bytes": nbytes, "flops": flops,
+    }
+    print(f"  {name}: kernel {entry['ms']:.4f} ms | plain "
+          f"{entry['plain_ms']:.4f} ms | library {library:.4f} ms | bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})", flush=True)
+    del cases, lib
+    torch.cuda.empty_cache()
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the main path at full width
+# ---------------------------------------------------------------------------
+
+def make_requests(rng, vocab, n, gen, lo, hi, prefix_len):
+    """A third of the requests share a ``prefix_len``-token prefix; the last
+    two of them are exactly the prefix, so they arrive when its blocks are
+    cached, alias every one and must copy the last on write.  The rest are
+    independent."""
+    prefix = rng.integers(0, vocab, size=prefix_len).tolist()
+    reqs = []
+    for i in range(n):
+        length = int(rng.integers(lo, hi + 1))
+        if i % 3 == 0:
+            if i >= n - 6:
+                tail = []
+            else:
+                tail = rng.integers(0, vocab,
+                                    size=max(length - prefix_len, 1)).tolist()
+            prompt = prefix + tail
+        else:
+            prompt = rng.integers(0, vocab, size=length).tolist()
+        reqs.append({"prompt": prompt, "max_new_tokens": gen})
+    return reqs
+
+
+def teacher_forced_gap(model, params, rec) -> tuple[float, float]:
+    """Feed prompt + output through ``Model.forward`` and return (the largest
+    amount by which an emitted token's reference logit falls short of the
+    reference maximum at its position, the share of emitted tokens that are
+    the reference argmax)."""
+    seq = list(rec.prompt) + list(rec.tokens)
+    toks = torch.tensor([seq], dtype=torch.int32, device=DEV)
+    with torch.no_grad():
+        logits = model.forward(params, {"tokens": toks})[0].float()
+    P = len(rec.prompt)
+    at = logits[P - 1:P - 1 + len(rec.tokens)]
+    emitted = torch.tensor(rec.tokens, device=DEV)
+    got = at.gather(1, emitted[:, None])[:, 0]
+    gap = at.max(dim=1).values - got
+    return float(gap.max()), float((at.argmax(1) == emitted).float().mean())
+
+
+def steps_vs_plain(model, params, scfg, rng, tol) -> float:
+    """The model's paged steps on the kernel and on the plain version, fed
+    the same tokens, positions and tables as an engine would feed them:
+    ragged prompts stream in as chunks (rows whose prompt has ended, and one
+    slot that never holds a request, ride along idle on a zeroed table row),
+    then every live slot takes one decode step.  Each side writes its own
+    pools.  Returns the largest logit difference on the rows that were fed.
+    """
+    B, C, NB = scfg.max_seqs, scfg.chunk_size, scfg.blocks_per_seq
+    V = model.cfg.vocab_size
+    plain = build(model.cfg.replace(use_kernels=False))
+    lens = rng.integers(C + 2, 3 * C + C // 2, size=B)
+    lens[0], lens[1], lens[min(3, B - 1)] = 3 * C, 2 * C + 1, 0
+    n_chunks = -(-int(lens.max()) // C)
+    toks = rng.integers(0, V, size=(B, (n_chunks + 1) * C)).astype(np.int32)
+    own = (1 + np.arange(B * NB, dtype=np.int32)).reshape(B, NB)
+    slots = torch.arange(B, dtype=torch.int32, device=DEV)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(DEV)
+
+    worst = 0.0
+    with torch.no_grad():
+        ca, cb = (m.init_paged_cache(scfg.pool_blocks(), scfg.block_size, B)
+                  for m in (model, plain))
+        for start in range(0, n_chunks * C, C):
+            valid = np.clip(lens - start, 0, C)
+            fed = valid > 0
+            chunk = np.where(np.arange(C)[None] < valid[:, None],
+                             toks[:, start:start + C], 0)
+            pos = np.where(fed[:, None], start + np.arange(C)[None], 0)
+            args = (dev(chunk), dev(pos), slots,
+                    dev(np.where(fed[:, None], own, 0)), dev(valid))
+            la, ca = model.paged_prefill_step(params, ca, *args)
+            lb, cb = plain.paged_prefill_step(params, cb, *args)
+            rows = torch.from_numpy(fed).to(DEV)
+            worst = max(worst, float((la.float() - lb.float())[rows]
+                                     .abs().max()))
+        live = lens > 0
+        args = (dev(np.where(live, toks[np.arange(B), lens], 0)),
+                dev(np.where(live, lens, 0)),
+                dev(np.where(live[:, None], own, 0)))
+        la, ca = model.paged_decode_step(params, ca, *args)
+        lb, cb = plain.paged_decode_step(params, cb, *args)
+        rows = torch.from_numpy(live).to(DEV)
+        worst = max(worst, float((la.float() - lb.float())[rows].abs().max()))
+        if not (torch.isfinite(la.float()).all()
+                and torch.isfinite(lb.float()).all()):
+            raise AssertionError("non-finite logits on an idle row")
+    torch.cuda.synchronize()
+    if worst > tol:
+        raise AssertionError(f"kernel vs plain step logits differ by "
+                             f"{worst} > {tol}")
+    del ca, cb
+    torch.cuda.empty_cache()
+    return worst
+
+
+def count_sampling_steps(engine) -> list[int]:
+    """Wrap the engine's scheduler so that every planned step that samples a
+    token is counted: one with a decode row, or with a prefill chunk that
+    reaches the end of its prompt.  Those are the steps that owe the host a
+    fetch, one each.  Returns a one-element list that holds the count."""
+    count = [0]
+    plan_step = engine.scheduler.plan_step
+
+    def counted(*args, **kw):
+        plan = plan_step(*args, **kw)
+        if plan.decode or any(s.num_cached + n == s.seq_len
+                              for s, n in plan.prefill):
+            count[0] += 1
+        return plan
+
+    engine.scheduler.plan_step = counted
+    return count
+
+
+def phase_main_path(rng, quick: bool, profile: bool = False) -> dict:
+    print("phase 4: main path — tinyllama-1.1b through repro_torch.serve."
+          "Engine", flush=True)
+    cfg = get_config("tinyllama-1.1b")
+    if quick:
+        cfg = cfg.replace(num_layers=4)
+    n_req, gen = (12, 16) if quick else (48, 64)
+    model = build(cfg)
+    t0 = time.time()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    print(f"  model: {cfg.name} L={cfg.num_layers} d={cfg.d_model} "
+          f"H={cfg.n_heads} KH={cfg.n_kv_heads} hd={cfg.head_dim_} "
+          f"ff={cfg.d_ff} V={cfg.vocab_size} {cfg.dtype}; init "
+          f"{time.time() - t0:.2f}s", flush=True)
+    scfg = ServeConfig(max_seqs=8 if quick else 32, block_size=16,
+                       max_len=1280, chunk_size=128)
+    reqs = make_requests(rng, cfg.vocab_size, n_req, gen, 256, 1024, 512)
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(model, params, scfg)
+    sampling_steps = count_sampling_steps(eng)
+    reset_launches()                         # counts = the main path's only
+    out, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    total_launches = launches.pop("total")
+    peak = torch.cuda.max_memory_allocated()
+
+    if len(out) != n_req or any(len(r.tokens) != gen for r in out.values()):
+        raise AssertionError("not every request finished with its tokens")
+    L = cfg.num_layers
+    want = L * int(stats["decode_calls"] + stats["prefill_calls"])
+    if total_launches != want or launches["decode"] != \
+            L * int(stats["decode_calls"]):
+        raise AssertionError(f"kernel launches {total_launches} "
+                             f"({launches}) != layers x device calls {want}")
+    if total_launches == 0:
+        raise AssertionError("the main path never launched the kernel")
+    # one fetch for every step that samples, and none besides: a step whose
+    # prefill chunks all end before their prompts do, and that has no decode
+    # row, samples nothing and owes the host nothing
+    if stats["host_syncs"] != sampling_steps[0] or \
+            not 0 < sampling_steps[0] <= stats["steps"]:
+        raise AssertionError(f"{stats['host_syncs']:.0f} host fetches over "
+                             f"{sampling_steps[0]} sampling steps of "
+                             f"{stats['steps']:.0f}")
+    if stats["cow_copies"] < 1 or eng.cache_host.prefix_hits < 1:
+        raise AssertionError("no prefix hit / copy-on-write happened")
+
+    # Tolerances on bf16 logits (|logit| ~ 1 at random init): 22 layers of
+    # bf16 activations rounded at different places by the paged steps and
+    # the full-sequence forward.
+    tf_tol, plain_tol = 0.25, 0.25
+    gaps = [teacher_forced_gap(model, params, out[r])
+            for r in sorted(out)[:: max(n_req // 6, 1)]]
+    tf_gap = max(g for g, _ in gaps)
+    tf_match = float(np.mean([m for _, m in gaps]))
+    print(f"  teacher forcing vs Model.forward over {len(gaps)} requests: "
+          f"max logit shortfall {tf_gap:.4f} (tol {tf_tol}), "
+          f"argmax agreement {tf_match:.3f}", flush=True)
+    if tf_gap > tf_tol:
+        raise AssertionError(f"teacher-forced shortfall {tf_gap} > {tf_tol}")
+    plain_gap = steps_vs_plain(model, params, scfg, rng, plain_tol)
+    print(f"  model steps on kernel vs on plain version, logits of every "
+          f"prefill chunk and the first decode step: max abs diff "
+          f"{plain_gap:.4f} (tol {plain_tol})", flush=True)
+
+    # a short run on int8 pools through the same engine and kernel
+    reset_launches()
+    q8 = Engine(model, params, dataclasses.replace(scfg, cache_dtype="int8"))
+    out8, st8 = q8.run(make_requests(rng, cfg.vocab_size, 8, 16, 200, 400, 128))
+    if len(out8) != 8 or any(len(r.tokens) != 16 for r in out8.values()):
+        raise AssertionError("int8 run: not every request finished")
+    n8 = launch_counts()["total"]
+    if n8 != L * int(st8["decode_calls"] + st8["prefill_calls"]):
+        raise AssertionError("int8 run: launch count mismatch")
+    gap8 = max(teacher_forced_gap(model, params, out8[r])[0] for r in (0, 5))
+    print(f"  int8 pools: 8 requests x 16 tokens, {n8} launches, "
+          f"teacher-forced shortfall {gap8:.4f} (tol 0.5: one more rounding "
+          f"of every K/V row to 8 bits)", flush=True)
+    if gap8 > 0.5:
+        raise AssertionError(f"int8 teacher-forced shortfall {gap8} > 0.5")
+    del q8
+
+    res = {
+        "model": cfg.name, "layers": L, "requests": n_req, "gen": gen,
+        "steps": stats["steps"], "decode_calls": stats["decode_calls"],
+        "prefill_calls": stats["prefill_calls"],
+        "decode_tok_per_s": stats["decode_tok_per_s"],
+        "total_tok_per_s": stats["total_tok_per_s"],
+        "mean_ttft_s": stats["mean_ttft_s"], "wall_s": stats["wall_s"],
+        "prefill_tokens": stats["prefill_tokens"],
+        "decode_tokens": stats["decode_tokens"],
+        "cow_copies": stats["cow_copies"],
+        "prefix_hits": eng.cache_host.prefix_hits,
+        "host_syncs": stats["host_syncs"],
+        "sampling_steps": sampling_steps[0],
+        "k1_launches": launches, "peak_mem_bytes": peak,
+        "teacher_forced_shortfall": tf_gap, "argmax_agreement": tf_match,
+        "kernel_vs_plain_step_logits": plain_gap,
+    }
+    print(f"  served {n_req} requests x {gen} tokens in {stats['wall_s']:.2f}s:"
+          f" decode {stats['decode_tok_per_s']:.1f} tok/s | prefill+decode "
+          f"{stats['total_tok_per_s']:.1f} tok/s | mean TTFT "
+          f"{stats['mean_ttft_s'] * 1e3:.1f} ms | {stats['steps']:.0f} steps "
+          f"({stats['decode_calls']:.0f} decode, {stats['prefill_calls']:.0f} "
+          f"prefill calls) | K1 launches {launches} | peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    res["step_ms"] = time_steps(model, params, scfg, profile)
+    del eng, params
+    torch.cuda.empty_cache()
+    return res
+
+
+def time_steps(model, params, scfg, profile: bool = False) -> dict:
+    """Device time of one decode step and one prefill step of the model at
+    the engine's shapes, on the kernel and on the plain version.  With
+    ``profile``, the kernel steps are also traced with ``torch.profiler``
+    (device activity only) for the device's busy share and its top kernels.
+    """
+    B, C, NB = scfg.max_seqs, scfg.chunk_size, scfg.blocks_per_seq
+    tables = (1 + torch.arange(B * NB, dtype=torch.int32, device=DEV)
+              ).view(B, NB)
+    pos = torch.full((B,), 700, dtype=torch.int32, device=DEV)
+    tok = torch.zeros((B,), dtype=torch.int32, device=DEV)
+    ptok = torch.zeros((B, C), dtype=torch.int32, device=DEV)
+    ppos = (512 + torch.arange(C, dtype=torch.int32, device=DEV)
+            )[None].expand(B, C).contiguous()
+    valid = torch.full((B,), C, dtype=torch.int32, device=DEV)
+    slots = torch.arange(B, dtype=torch.int32, device=DEV)
+    res = {}
+    with torch.no_grad():
+        for label, m in (("kernel", model),
+                         ("plain", build(model.cfg.replace(
+                             use_kernels=False)))):
+            cache = m.init_paged_cache(scfg.pool_blocks(), scfg.block_size,
+                                       B)
+            res[f"decode_step_{label}_ms"] = time_ms(
+                lambda i: m.paged_decode_step(params, cache, tok, pos,
+                                              tables), iters=10, warmup=2)
+            res[f"prefill_step_{label}_ms"] = time_ms(
+                lambda i: m.paged_prefill_step(params, cache, ptok, ppos,
+                                               slots, tables, valid),
+                iters=5, warmup=1)
+            if profile and label == "kernel":
+                res["profile"] = {
+                    "decode": profile_step(lambda: m.paged_decode_step(
+                        params, cache, tok, pos, tables), 10),
+                    "prefill": profile_step(lambda: m.paged_prefill_step(
+                        params, cache, ptok, ppos, slots, tables, valid), 4)}
+            del cache
+    print("  model steps at B=32, history 700 (decode) / 512+128 (prefill): "
+          + " | ".join(f"{k} {v:.3f}" for k, v in res.items()
+                       if k != "profile"), flush=True)
+    return res
+
+
+def profile_step(fn, iters: int) -> dict:
+    """Busy share of the device over ``iters`` back-to-back calls of ``fn``
+    and the kernels that take most of its time, from a CUPTI trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in evs)
+    if busy_us <= 0:
+        print("  profile: the trace shows no device time (not measured)",
+              flush=True)
+        return {"measured": False}
+    top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    out = {"measured": True, "iters": iters, "wall_ms_per_call":
+           wall_us / iters / 1e3, "device_busy_ms_per_call":
+           busy_us / iters / 1e3, "device_idle_share": 1 - busy_us / wall_us,
+           "kernel_launches_per_call": sum(e.count for e in evs) / iters,
+           "top_kernels": [{"name": e.key[:60], "ms_per_call":
+                            e.self_device_time_total / iters / 1e3,
+                            "launches_per_call": e.count / iters}
+                           for e in top]}
+    print(f"  profile: wall {out['wall_ms_per_call']:.2f} ms/call, device "
+          f"busy {out['device_busy_ms_per_call']:.2f} ms/call, idle share "
+          f"{out['device_idle_share']:.3f}, "
+          f"{out['kernel_launches_per_call']:.0f} kernel launches/call",
+          flush=True)
+    for k in out["top_kernels"]:
+        print(f"    {k['ms_per_call']:8.3f} ms x{k['launches_per_call']:6.1f}"
+              f"  {k['name']}", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 5: device code around the kernel
+# ---------------------------------------------------------------------------
+
+def phase_device_code(rng) -> dict:
+    print("phase 5: device code around the kernel (plain PyTorch)", flush=True)
+    B, C, KH, D, bs, NB, L = 32, 128, 4, 64, 16, 80, 22
+    P = B * NB + 1
+    res = {}
+    tables = (1 + torch.arange(B * NB, dtype=torch.int32, device=DEV)
+              ).view(B, NB)
+    for label, dt in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        kv = {"k": torch.zeros((P, bs, KH, D), dtype=dt, device=DEV),
+              "v": torch.zeros((P, bs, KH, D), dtype=dt, device=DEV)}
+        if dt == torch.int8:
+            kv["k_scale"] = torch.zeros((P, bs, KH), device=DEV)
+            kv["v_scale"] = torch.zeros((P, bs, KH), device=DEV)
+        for shape, c in (("decode", 1), ("prefill", C)):
+            kn = torch.randn((B, c, KH, D), device=DEV, dtype=torch.bfloat16)
+            pos = (600 + torch.arange(c, device=DEV))[None].expand(B, c)
+            res[f"scatter_kv_{shape}_{label}_ms"] = time_ms(
+                lambda i: _scatter_kv(kv, kn, kn, tables, pos))
+    logits = torch.randn((B, 32000), device=DEV, dtype=torch.bfloat16)
+    small = build(reduced(get_config("tinyllama-1.1b")))
+    eng = Engine(small, small.init(seed=0), ServeConfig(max_seqs=B))
+    zeros, warm = np.zeros(B, np.float32), np.full(B, 0.8, np.float32)
+    res["sample_greedy_ms"] = time_ms(lambda i: eng._sample(logits, zeros))
+    res["sample_temperature_ms"] = time_ms(lambda i: eng._sample(logits, warm))
+    pools = {n: torch.zeros((L, P, bs, KH, D), dtype=torch.bfloat16,
+                            device=DEV) for n in ("k", "v")}
+    res["cow_copy_bf16_ms"] = time_ms(lambda i: eng._cow_impl(pools, 5, 9))
+    for k, v in res.items():
+        print(f"  {k} {v:.4f}", flush=True)
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--quick", action="store_true",
+                    help="cut phase 4 to 4 layers and a few requests")
+    ap.add_argument("--profile", action="store_true",
+                    help="also trace one decode and one prefill step with "
+                         "torch.profiler: device busy share, top kernels")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); this script runs on the GPU only", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.time()
+    rng = np.random.default_rng(args.seed)
+
+    print("phase 1: environment", flush=True)
+    card = nvidia_smi_line()
+    nvcc = subprocess.run([_build.find_nvcc(), "--version"],
+                          capture_output=True, text=True).stdout.strip()
+    print(f"  card: {card}")
+    release = [ln.strip() for ln in nvcc.splitlines() if "release" in ln]
+    print(f"  python {sys.version.split()[0]} | torch {torch.__version__} | "
+          f"CUDA {torch.version.cuda} | nvcc: {release[0] if release else nvcc}")
+    print("  TF32 off: matmul.allow_tf32=False, cudnn.allow_tf32=False",
+          flush=True)
+
+    print("phase 2: build", flush=True)
+    t0 = time.time()
+    ensure_built()
+    print(f"  built {K1_SOURCE} -> {_build.library_path('paged_attention')} "
+          f"in {time.time() - t0:.1f}s (nvcc "
+          f"{_build.build_seconds.get('paged_attention', 0.0):.1f}s; set-up)",
+          flush=True)
+    log = _build.library_path("paged_attention").with_suffix(".log")
+    if log.exists():
+        lines = [ln for ln in log.read_text().splitlines()
+                 if "registers" in ln or "spill" in ln]
+        regs = [int(ln.split("Used ")[1].split(" registers")[0])
+                for ln in lines if "Used " in ln]
+        spills = [ln for ln in lines if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        if regs:
+            print(f"  ptxas: {len(regs)} kernels, registers "
+                  f"{min(regs)}-{max(regs)}, {len(spills)} with spills",
+                  flush=True)
+
+    worst = phase_kernel_checks(rng)
+    print("phase 3b: kernel times at the main path's shapes (bf16)",
+          flush=True)
+    kernels = [
+        time_kernel("paged_attention.decode", rng, C=1, NB=80, prefill=False,
+                    iters=40),
+        time_kernel("paged_attention.prefill", rng, C=128, NB=80,
+                    prefill=True, iters=12),
+    ]
+    main_res = phase_main_path(rng, args.quick, args.profile)
+    kernels[0]["launches"] = main_res["k1_launches"]["decode"]
+    kernels[1]["launches"] = main_res["k1_launches"]["prefill"]
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was never launched by the "
+                                 f"main path")
+        k["max_abs_err"] = max(k["max_abs_err"], worst)
+    dev_res = phase_device_code(rng)
+
+    print(json.dumps({"main_path": main_res}))
+    print(json.dumps({"device_code_ms": dev_res}))
+    print(f"total {time.time() - t_start:.1f}s", flush=True)
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,23 @@
+"""qwen3-1.7b [dense] — 28L d_model=2048 16H (GQA kv=8) d_ff=6144 vocab=151936.
+
+qk_norm + GQA.  [hf:Qwen/Qwen3-8B family; hf-verified]
+"""
+from repro_torch.configs.base import ArchConfig, register
+
+
+@register("qwen3-1.7b")
+def qwen3_1_7b() -> ArchConfig:
+    return ArchConfig(
+        name="qwen3-1.7b",
+        family="dense",
+        num_layers=28,
+        d_model=2048,
+        n_heads=16,
+        n_kv_heads=8,
+        head_dim=128,
+        d_ff=6144,
+        vocab_size=151_936,
+        qk_norm=True,
+        rope_theta=1_000_000.0,
+        tie_embeddings=True,
+    )

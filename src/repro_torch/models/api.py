@@ -1,0 +1,72 @@
+"""Model facade: one object per ArchConfig binding the pure functions of
+``models/transformer.py``.  ``init`` and the cache constructors take an
+explicit ``device``; ``None`` means the CUDA device and raises when there is
+none (ask for ``device="cpu"`` explicitly)."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as tf
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+
+    # ----- init -----
+    def init(self, seed: int = 0, device=None) -> dict:
+        """Random parameters from a ``torch.Generator`` seeded with ``seed``
+        on the target device."""
+        gen = torch.Generator(device=resolve_device(device))
+        gen.manual_seed(int(seed))
+        return tf.init_params(self.cfg, gen)
+
+    # ----- training -----
+    def loss(self, params, batch):
+        return tf.loss_fn(params, self.cfg, batch)
+
+    def forward(self, params, batch):
+        h = tf.forward(params, self.cfg, batch)
+        return tf.logits_from_hidden(params, self.cfg, h)
+
+    # ----- serving -----
+    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
+        return tf.init_cache(self.cfg, batch, max_len,
+                             resolve_device(device))
+
+    def decode_step(self, params, cache, tokens, pos):
+        return tf.decode_step(params, self.cfg, cache, tokens, pos)
+
+    # ----- paged serving (continuous batching; repro_torch.serve) -----
+    def init_paged_cache(self, num_blocks: int, block_size: int,
+                         max_seqs: int, dtype: str | None = None,
+                         device=None) -> dict:
+        return tf.init_paged_cache(self.cfg, num_blocks, block_size, max_seqs,
+                                   dtype=dtype,
+                                   device=resolve_device(device))
+
+    def paged_decode_step(self, params, cache, tokens, positions,
+                          block_tables, active=None):
+        return tf.paged_decode_step(params, self.cfg, cache, tokens,
+                                    positions, block_tables, active)
+
+    def paged_prefill_step(self, params, cache, tokens, positions, slots,
+                           block_tables, valid):
+        return tf.paged_prefill_step(params, self.cfg, cache, tokens,
+                                     positions, slots, block_tables, valid)
+
+    def paged_verify_step(self, params, cache, tokens, positions, slots,
+                          block_tables, valid):
+        """Multi-token scoring step: logits at every position (B, K+1, V),
+        not just the last valid one."""
+        return tf.paged_verify_step(params, self.cfg, cache, tokens,
+                                    positions, slots, block_tables, valid)
+
+
+def build(cfg: ArchConfig) -> Model:
+    tf.require_dense(cfg)
+    return Model(cfg)

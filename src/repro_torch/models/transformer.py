@@ -1,0 +1,338 @@
+"""Transformer backbone of the port: the dense family (GQA attention +
+SwiGLU), as the reference's ``models/transformer.py`` runs it.
+
+Parameters are a nested dict of tensors with the reference's key paths;
+``params["layers"]`` holds every per-layer leaf stacked on a leading
+``(L, ...)`` axis, and a Python loop over that axis takes the place of
+``lax.scan``.  The other families (moe, vlm, hybrid, ssm, audio, cnn) raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
+
+In-place updates: the contiguous cache and the paged pools are written in
+place by every decode / prefill / verify step (the reference donates those
+buffers to its jitted steps); the returned cache is the object passed in.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.paged_attention import is_quantized, pool_dtype
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    cross_entropy, dense_init, dtype_of, embed_init, rms_norm, swiglu,
+    swiglu_init)
+
+_LATER = {
+    "moe": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
+    "vlm": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
+    "audio": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
+    "cnn": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
+    "hybrid": "Queue 1 item 13 (SSM and hybrid families)",
+    "ssm": "Queue 1 item 13 (SSM and hybrid families)",
+}
+
+
+def require_dense(cfg: ArchConfig) -> None:
+    if cfg.family != "dense" or cfg.hybrid or cfg.n_experts or cfg.is_encoder:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet — "
+            f"ROADMAP.md {_LATER.get(cfg.family, 'Queue 1')}")
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked tree, as views (no copy)."""
+    return _tree_map(lambda a: a[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def layer_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    dt = dtype_of(cfg.dtype)
+    ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
+    p: dict[str, Any] = {"ln1": ones()}
+    p["attn"] = attn.attn_init(gen, cfg)
+    if cfg.d_ff:
+        p["ln2"] = ones()
+        p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dt)
+    return p
+
+
+def _stack(trees: list[dict]) -> dict:
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)
+
+
+def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
+    """Random parameters drawn from ``gen`` on ``gen.device``."""
+    require_dense(cfg)
+    dt = dtype_of(cfg.dtype)
+    params: dict[str, Any] = {}
+    params["tok_embed"] = embed_init(gen, (cfg.vocab_size, cfg.d_model), dt)
+    params["layers"] = _stack([layer_init(gen, cfg)
+                               for _ in range(cfg.num_layers)])
+    params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt,
+                                      device=gen.device)
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Per-layer forward and full forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def layer_forward(lp: dict, cfg: ArchConfig, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    x = x + attn.attention_block(lp["attn"], cfg, h, positions, "causal",
+                                 window=cfg.sliding_window)
+    if cfg.d_ff:
+        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+        x = x + swiglu(lp["mlp"], h2)
+    return x
+
+
+def forward(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """Hidden states (B, S, d) after the final norm.  ``params["layers"]``
+    may be the stacked tree or a list of per-layer trees
+    (``unstack_layers``)."""
+    require_dense(cfg)
+    tokens = batch["tokens"]
+    h = params["tok_embed"][tokens.long()]
+    B, S, _ = h.shape
+    positions = torch.arange(S, dtype=torch.int32, device=h.device
+                             )[None].expand(B, S)
+    layers = params["layers"]
+    for i in range(cfg.num_layers):
+        lp = layers[i] if isinstance(layers, list) else _layer(layers, i)
+        h = layer_forward(lp, cfg, h, positions)
+    return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+
+def logits_from_hidden(params, cfg, h) -> torch.Tensor:
+    if not cfg.tie_embeddings:
+        return torch.einsum("bsd,dv->bsv", h, params["head"])
+    return torch.einsum("bsd,vd->bsv", h, params["tok_embed"])
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict
+            ) -> tuple[torch.Tensor, dict]:
+    h = forward(params, cfg, batch)
+    logits = logits_from_hidden(params, cfg, h)
+    ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
+    return ce + aux, {"ce": ce, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Decode over a contiguous cache (the sequential oracle's step)
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
+    require_dense(cfg)
+    kv = attn.init_layer_cache(cfg, batch, max_len, dtype_of(cfg.dtype),
+                               device)
+    L = cfg.num_layers
+    return {"k": kv.k[None].repeat(L, 1, 1, 1, 1),
+            "v": kv.v[None].repeat(L, 1, 1, 1, 1)}
+
+
+def _decode_layer(lp: dict, lc: dict, h: torch.Tensor, cfg: ArchConfig,
+                  attn_fn) -> torch.Tensor:
+    """One incremental layer, shared by the contiguous decode, paged decode
+    and chunked paged-prefill paths.  ``attn_fn(attn_params, hn, lc) ->
+    a_out`` encapsulates everything the cache layouts / step widths
+    disagree on (and writes ``lc`` in place); the residual/FFN scaffolding
+    stays single-source."""
+    hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    h = h + attn_fn(lp["attn"], hn, lc)
+    if cfg.d_ff:
+        h2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        h = h + swiglu(lp["mlp"], h2)
+    return h
+
+
+def _run_decode_layers(params: dict, cfg: ArchConfig, cache: dict,
+                       x: torch.Tensor, attn_fn) -> torch.Tensor:
+    """Layer loop + final norm shared by the incremental paths.  Each
+    layer's cache slice is a view into ``cache``, so its in-place writes
+    land in the stacked tensors.  Returns hidden (B, S, d)."""
+    h = x
+    for i in range(cfg.num_layers):
+        h = _decode_layer(_layer(params["layers"], i), _layer(cache, i), h,
+                          cfg, attn_fn)
+    return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+
+def decode_step(params: dict, cfg: ArchConfig, cache: dict,
+                tokens: torch.Tensor, pos: int) -> tuple[torch.Tensor, dict]:
+    """One decode step.  tokens (B,) int, pos python int.
+
+    Returns (logits (B, V), the cache, updated in place).
+    """
+    require_dense(cfg)
+    x = params["tok_embed"][tokens.long()[:, None]]             # (B,1,d)
+    pos = int(pos)
+
+    def attn_fn(ap, hn, lc):
+        a_out, _ = attn.attention_decode(
+            ap, cfg, hn, pos, attn.KVCache(lc["k"], lc["v"]), "causal")
+        return a_out
+
+    h = _run_decode_layers(params, cfg, cache, x, attn_fn)
+    return logits_from_hidden(params, cfg, h)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Paged decode (continuous-batching serving)
+# ---------------------------------------------------------------------------
+
+# one layer's KV-pool leaves, in cache-dict order (scale pools exist only
+# when the pool is quantized — ServeConfig.cache_dtype)
+_KV_POOL_KEYS = ("k", "v", "k_scale", "v_scale")
+
+
+def init_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
+                     max_seqs: int, dtype: str | None = None,
+                     device=None) -> dict:
+    """Block-pool KV cache.
+
+    KV lives in a shared pool of ``num_blocks`` blocks of ``block_size``
+    tokens (block 0 is the reserved null block that idle slots write into).
+    ``dtype`` overrides the KV pool element type: a plain narrow dtype
+    ("bfloat16") casts on write; a quantized dtype ("int8", "fp8_e4m3")
+    additionally allocates per-(block, token, kv-head) f32 scale pools
+    mirroring the KV pools' block layout, written by ``_scatter_kv`` and
+    consumed by the kernel's fused dequant.  Pools start as zeros (never
+    uninitialised memory): masked keys multiply ``p = 0`` by whatever a
+    block holds, so every cell must be finite from the start.
+    ``max_seqs`` sizes per-slot recurrent state in the families that have
+    it; the dense family has none.
+    """
+    require_dense(cfg)
+    del max_seqs
+    quant = is_quantized(dtype)
+    dt = pool_dtype(dtype) if quant else dtype_of(dtype or cfg.dtype)
+    L, KH = cfg.num_layers, cfg.n_kv_heads
+    cache: dict[str, Any] = {
+        "k": torch.zeros((L, num_blocks, block_size, KH, cfg.head_dim_),
+                         dtype=dt, device=device),
+        "v": torch.zeros((L, num_blocks, block_size, KH, cfg.v_head_dim_),
+                         dtype=dt, device=device),
+    }
+    if quant:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros((L, num_blocks, block_size, KH),
+                                      dtype=torch.float32, device=device)
+    return cache
+
+
+def paged_decode_step(params: dict, cfg: ArchConfig, cache: dict,
+                      tokens: torch.Tensor, positions: torch.Tensor,
+                      block_tables: torch.Tensor,
+                      active: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, dict]:
+    """One continuous-batching decode step.
+
+    tokens (B,) int32; positions (B,) int32 per-slot write index (slots may
+    be at different depths); block_tables (B, NB) int32; active (B,) bool
+    marks the slots actually fed this step (it gates recurrent state in the
+    families that have it; the dense family ignores it).  Inactive slots'
+    K/V writes are harmless because the engine hands them a zeroed table
+    row (everything lands in the null block).  Returns (logits (B, V), the
+    cache, written in place).
+    """
+    require_dense(cfg)
+    del active
+    x = params["tok_embed"][tokens.long()[:, None]]             # (B,1,d)
+
+    def attn_fn(ap, hn, lc):
+        a_out, _ = attn.attention_paged_decode(
+            ap, cfg, hn, positions, lc, block_tables, window=0)
+        return a_out
+
+    h = _run_decode_layers(params, cfg, cache, x, attn_fn)
+    return logits_from_hidden(params, cfg, h)[:, 0], cache
+
+
+def _paged_chunk_forward(params: dict, cfg: ArchConfig, cache: dict,
+                         tokens: torch.Tensor, positions: torch.Tensor,
+                         slots: torch.Tensor, block_tables: torch.Tensor,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """Shared core of chunked prefill and speculative verify: push a
+    fixed-width chunk of tokens per sequence through the layer stack,
+    scattering K/V of the valid tokens into the paged pool (padding lands
+    in the null block).  ``slots`` addresses per-slot recurrent state in
+    the families that have it.  Returns hidden (B, C, d)."""
+    require_dense(cfg)
+    del slots
+    x = params["tok_embed"][tokens.long()]                      # (B,C,d)
+
+    def attn_fn(ap, hn, lc):
+        a_out, _ = attn.attention_paged_prefill(
+            ap, cfg, hn, positions, lc, block_tables, valid, window=0)
+        return a_out
+
+    return _run_decode_layers(params, cfg, cache, x, attn_fn)
+
+
+def paged_prefill_step(params: dict, cfg: ArchConfig, cache: dict,
+                       tokens: torch.Tensor, positions: torch.Tensor,
+                       slots: torch.Tensor, block_tables: torch.Tensor,
+                       valid: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Chunked prefill: push a fixed-size chunk of known tokens through the
+    layer stack, scattering K/V into the paged pool — O(P/chunk) engine
+    steps for a P-token prompt.
+
+    tokens (B, C) int32, right-padded; positions (B, C) absolute indices
+    (``num_cached + arange(C)``); slots (B,) int32; block_tables (B, NB);
+    valid (B,) real-token counts.  Returns (logits of each sequence's last
+    valid token (B, V), cache) — rows with ``valid == 0`` produce logits
+    the engine ignores.
+    """
+    h = _paged_chunk_forward(params, cfg, cache, tokens, positions, slots,
+                             block_tables, valid)
+    last = (valid.long() - 1).clamp(min=0)[:, None, None]
+    h_last = torch.gather(h, 1, last.expand(-1, 1, h.shape[-1]))  # (B,1,d)
+    return logits_from_hidden(params, cfg, h_last)[:, 0], cache
+
+
+def paged_verify_step(params: dict, cfg: ArchConfig, cache: dict,
+                      tokens: torch.Tensor, positions: torch.Tensor,
+                      slots: torch.Tensor, block_tables: torch.Tensor,
+                      valid: torch.Tensor) -> tuple[torch.Tensor, dict]:
+    """Speculative-verify scoring step: same contract as
+    ``paged_prefill_step`` but the full (B, K+1, V) logits come back, so a
+    caller can accept/reject each drafted token against the exact
+    distribution a token-by-token decode would have produced."""
+    h = _paged_chunk_forward(params, cfg, cache, tokens, positions, slots,
+                             block_tables, valid)
+    return logits_from_hidden(params, cfg, h), cache
+
+
+# ---------------------------------------------------------------------------
+# stack/unstack helpers for the pruning engine's unrolled analysis mode
+# ---------------------------------------------------------------------------
+
+def unstack_layers(params: dict, num_layers: int) -> dict:
+    out = dict(params)
+    out["layers"] = [_layer(params["layers"], i) for i in range(num_layers)]
+    return out
+
+
+def stack_layers(params: dict) -> dict:
+    out = dict(params)
+    out["layers"] = _stack(list(params["layers"]))
+    return out

@@ -23,6 +23,9 @@ def pytest_addoption(parser):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: needs --runslow")
+    config.addinivalue_line(
+        "markers", "gpu: launches a CUDA kernel of repro_torch; skipped "
+        "(inside the test, with a reason) where there is no CUDA device")
 
 
 def pytest_collection_modifyitems(config, items):
