@@ -19,12 +19,23 @@ nothing of JAX or of the JAX package.  Phases:
     weights from a seed) served by ``repro_torch.serve.Engine``, checked by
     teacher forcing against ``Model.forward``, and its model steps against
     the same steps on the plain version; plus a short int8-pool run;
- 5. times of the device code around the kernel (KV scatter, sampling, COW).
+ 5. times of the device code around the kernel (KV scatter, sampling, COW);
+ 6. the OBSPA sweep kernel K4 against its plain PyTorch version and the
+    float64 oracle (the reference's test shapes, identity Hessian, a batched
+    case, the main path's R=2048 x K=2048 / 5632 at half the columns pruned),
+    and its time beside the plain version and the card's bound;
+ 7. the prune-then-serve path at full width: ``tinyllama-1.1b`` OBSPA-pruned
+    on the card at ratio 0.5 with data-free calibration (its sweeps launch
+    K4), every reconstructed layer's output error held below plain slicing,
+    logit MSE against the dense model for OBSPA and for magnitude pruning,
+    then the pruned model (D != DV) served by ``Engine`` through K1 and
+    checked by teacher forcing against its own ``Model.forward``.
 
-Any failing phase raises, so the exit code is non-zero and no ``"ok"`` line
+The kernels are built in parallel (one ``nvcc`` per source).  Any failing
+phase raises, so the exit code is non-zero and no ``"ok"`` line
 is printed.  TF32 is off for matmuls and cuDNN throughout.
 
-``--quick`` cuts phase 4 to 4 layers and a few requests (for a first look at
+``--quick`` cuts phases 4 and 7 to 4 layers and a few requests (for a first look at
 a new kernel); ``--profile`` adds a ``torch.profiler`` trace of one decode
 and one prefill step (device busy share, top kernels).  The default is the
 full run without the trace.
@@ -34,10 +45,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
@@ -47,7 +60,12 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
+from repro_torch.core.obspa import (  # noqa: E402
+    layer_output_errors, obspa_prune)
+from repro_torch.core.pruner import prune_model  # noqa: E402
+from repro_torch.data.synthetic import batches  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import obspa_update as k4  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     ensure_built, expected_visits, launch_counts, paged_attention,
     paged_prefill_attention, quantize, reset_launches)
@@ -84,6 +102,12 @@ def excess_over_tol(err, ref) -> float:
 
 K1_SOURCE = "src/repro_torch/kernels/csrc/paged_attention.cu"
 K1_REPLACES = "src/repro/kernels/paged_attention/paged_attention.py:130"
+K4_SOURCE = "src/repro_torch/kernels/csrc/obspa_update.cu"
+K4_REPLACES = "src/repro/kernels/obspa_update/obspa_update.py:50"
+# K4 vs the float64 oracle: error relative to |oracle|.max(), the limit
+# tests/test_kernels.py holds the reference's sweep to (f32 chains of up to
+# K rank-1 steps round differently from float64)
+K4_RTOL = 1e-4
 
 DEV = "cuda"
 
@@ -769,6 +793,306 @@ def phase_device_code(rng) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the OBSPA sweep kernel (K4) vs its plain version
+# ---------------------------------------------------------------------------
+
+def sweep_case(seed, R, K, frac, nb=None):
+    """W, Hinv (inverse of a damped sample covariance, float64 inverse) and
+    a prune mask, made on the card from a seeded generator.  Returns CUDA
+    tensors (f32, f32, bool)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    lead = () if nb is None else (nb,)
+    W = torch.randn(lead + (R, K), generator=gen, device=DEV)
+    X = torch.randn(lead + (K, 4 * K), generator=gen, device=DEV,
+                    dtype=torch.float64)
+    H = X @ X.transpose(-1, -2) / (4 * K) + 0.01 * torch.eye(
+        K, device=DEV, dtype=torch.float64)
+    Hinv = torch.linalg.inv(H).float()
+    mask = torch.rand(K, generator=gen, device=DEV) < frac
+    return W, Hinv, mask
+
+
+def sweep_rel_err(out, gold) -> float:
+    return float((out.double() - gold.double()).abs().max()
+                 / gold.double().abs().max().clamp(min=1e-30))
+
+
+def check_sweep(name, W, Hinv, mask, oracle="plain64"):
+    """Kernel-path sweep against the plain PyTorch sweep (f32, same card)
+    and the float64 oracle (numpy on the host for small shapes, the plain
+    sweep in float64 on the card for the main path's)."""
+    batched = W.ndim == 3
+    fn = k4.obspa_sweep_batched if batched else k4.obspa_sweep
+    out = fn(W, Hinv, mask)
+    torch.cuda.synchronize()
+    plain = k4.sweep_plain(W, Hinv, mask)
+    if oracle == "numpy":
+        gold = torch.from_numpy(k4.sweep_oracle(W, Hinv, mask)).to(DEV)
+    else:
+        gold = k4.sweep_plain(W.double(), Hinv.double(), mask)
+    e_gold, e_plain = sweep_rel_err(out, gold), sweep_rel_err(out, plain)
+    ok = e_gold < K4_RTOL and e_plain < K4_RTOL and \
+        bool(torch.isfinite(out).all())
+    print(f"  {name:40s} rel err vs oracle {e_gold:.3e}, vs plain "
+          f"{e_plain:.3e} (tol {K4_RTOL:g}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"K4 {name}: rel err {e_gold} / {e_plain}")
+    return out, max(e_gold, e_plain)
+
+
+def phase_k4_checks() -> float:
+    print("phase 6: OBSPA sweep kernel (K4) vs plain PyTorch version",
+          flush=True)
+    worst = 0.0
+    for i, (R, K, frac) in enumerate([(64, 96, 0.3), (100, 256, 0.5),
+                                      (17, 130, 0.7), (256, 128, 0.25)]):
+        _, e = check_sweep(f"R={R} K={K} frac={frac}",
+                           *sweep_case(100 + i, R, K, frac), oracle="numpy")
+        worst = max(worst, e)
+    W = torch.randn((32, 64), device=DEV)
+    mask = torch.zeros(64, dtype=torch.bool, device=DEV)
+    mask[[3, 10, 50]] = True
+    out, e = check_sweep("identity Hinv, 3 of 64 pruned", W,
+                         torch.eye(64, device=DEV), mask, oracle="numpy")
+    if float(out[:, mask].abs().max()) > 1e-6 or \
+            float((out[:, ~mask] - W[:, ~mask]).abs().max()) > 1e-6:
+        raise AssertionError("K4 identity case: pruned columns not zeroed "
+                             "or kept columns changed")
+    worst = max(worst, e)
+    _, e = check_sweep("batched nb=4 R=96 K=300",
+                       *sweep_case(110, 96, 300, 0.5, nb=4))
+    worst = max(worst, e)
+    for K in (2048, 5632):
+        _, e = check_sweep(f"main path R=2048 K={K} half pruned",
+                           *sweep_case(120 + K, 2048, K, 0.5))
+        worst = max(worst, e)
+    return worst
+
+
+def kernel_device_ms(fn, name: str, iters: int) -> float | None:
+    """Device time per launch of the kernels whose name holds ``name``,
+    from a CUPTI trace of ``iters`` calls of ``fn(i)`` (None when the trace
+    shows no device time: not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and name in e.key]
+    n = sum(e.count for e in evs)
+    us = sum(e.self_device_time_total for e in evs)
+    return us / n / 1e3 if n and us > 0 else None
+
+
+def inblock_work(R: int, mask) -> tuple[int, int]:
+    """(bytes, flops) of one in-block sweep, from this mask: W read and
+    written once, E written once, the Hinv block and the mask read once;
+    per pruned column j a divide and a multiply-add over columns j..127 of
+    every row."""
+    B = k4.BLOCK
+    nbytes = 3 * R * B * 4 + B * B * 4 + B
+    cols = torch.nonzero(mask.cpu())[:, 0].tolist()
+    flops = sum(R * (1 + 2 * (B - j)) for j in cols)
+    return nbytes, flops
+
+
+def time_k4(iters: int = 50) -> tuple[dict, dict]:
+    """K4 and its plain version at the main path's shape (one 128-column
+    block of a 2048-row view, half the columns pruned), and the whole sweep
+    of a (2048, 5632) view on the kernel path vs the plain sweep."""
+    R, B = 2048, k4.BLOCK
+    W, Hinv, mask = sweep_case(7, R, 5632, 0.5)
+    n_rot = 4
+    tiles = [(W[:, i * B:(i + 1) * B].contiguous(),
+              Hinv[i * B:(i + 1) * B, i * B:(i + 1) * B].contiguous(),
+              mask[i * B:(i + 1) * B].contiguous()) for i in range(n_rot)]
+    outs = [torch.empty_like(t[0]) for t in tiles]
+    w, e = k4.inblock_sweep_kernel(*tiles[0])
+    pw, pe = k4.inblock_sweep_plain(tiles[0][0][None], tiles[0][1][None],
+                                    tiles[0][2])
+    torch.cuda.synchronize()
+    max_err = max(float((w - pw[0]).abs().max()),
+                  float((e - pe[0]).abs().max()))
+    kern = lambda i: k4.inblock_sweep_kernel(*tiles[i % n_rot],
+                                             out=outs[i % n_rot])
+    plain = lambda i: k4.inblock_sweep_plain(
+        tiles[i % n_rot][0][None], tiles[i % n_rot][1][None],
+        tiles[i % n_rot][2])
+    plain_a = time_ms(plain, iters=5, warmup=1)
+    kern_a = time_ms(kern, iters=iters)
+    kern_b = time_ms(kern, iters=iters)
+    plain_b = time_ms(plain, iters=5, warmup=1)
+    device = kernel_device_ms(kern, "inblock_sweep_kernel", iters)
+    nbytes, flops = inblock_work(R, tiles[0][2])
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    entry = {
+        "name": "obspa_sweep.inblock", "route": "cuda", "source": K4_SOURCE,
+        "replaces": K4_REPLACES, "launches": 0, "max_abs_err": max_err,
+        "ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
+        "bound_ms": max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "library_ms": None,
+        "shape": {"R": R, "block": B, "pruned_columns":
+                  int(tiles[0][2].sum()), "dtype": "float32"},
+        "bytes": nbytes, "flops": flops, "device_ms": device,
+    }
+    print(f"  {entry['name']} (R={R}, 128 columns, "
+          f"{entry['shape']['pruned_columns']} pruned): kernel "
+          f"{entry['ms']:.4f} ms | plain {entry['plain_ms']:.4f} ms | "
+          f"library none | bound {entry['bound_ms']:.5f} ms "
+          f"({entry['bound_by']}) | max abs err {max_err:.2e} | device time "
+          f"per launch (profiler) "
+          f"{'not measured' if device is None else f'{device:.4f} ms'}",
+          flush=True)
+    sweep = {"shape": [R, 5632], "pruned_columns": int(mask.sum())}
+    k4_path = lambda i: k4.obspa_sweep(W, Hinv, mask)
+    plain_path = lambda i: k4.sweep_plain(W, Hinv, mask)
+    pa = time_ms(plain_path, iters=2, warmup=1)
+    ka = time_ms(k4_path, iters=5, warmup=1)
+    kb = time_ms(k4_path, iters=5, warmup=1)
+    pb = time_ms(plain_path, iters=2, warmup=1)
+    sweep.update({"k4_path_ms": (ka + kb) / 2, "plain_sweep_ms": (pa + pb) / 2,
+                  "k4_launches_per_sweep": 5632 // B})
+    print(f"  whole sweep R=2048 K=5632: K4 path {sweep['k4_path_ms']:.3f} ms"
+          f" (44 K4 launches + 43 panel GEMMs) | plain unblocked sweep "
+          f"{sweep['plain_sweep_ms']:.3f} ms", flush=True)
+    del tiles, outs, W, Hinv
+    torch.cuda.empty_cache()
+    return entry, sweep
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: prune then serve, at full width
+# ---------------------------------------------------------------------------
+
+def phase_prune_path(rng, quick: bool) -> dict:
+    print("phase 7: prune then serve — tinyllama-1.1b OBSPA-pruned on the "
+          "card (K4), served through K1", flush=True)
+    cfg = get_config("tinyllama-1.1b")
+    if quick:
+        cfg = cfg.replace(num_layers=4)
+    L = cfg.num_layers
+    model = build(cfg)
+    params = model.init(seed=0)
+    calib = batches(cfg, "datafree", 4, 4, 512, seed=5)
+    evalb = model.dummy_batch(4, 128, seed=9)
+    with torch.no_grad():
+        dense_logits = model.forward(params, evalb).float()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    k4.reset_launches()                      # counts = this path's only
+    reset_launches()
+    t0 = time.time()
+    pr = obspa_prune(model, params, 0.5, calib, calib_mode="datafree")
+    torch.cuda.synchronize()
+    prune_s = time.time() - t0
+    k4_launches = k4.launch_count()
+    peak = torch.cuda.max_memory_allocated()
+    pc = pr.cfg
+    secs = pr.report["seconds"]
+    print(f"  pruned config: heads {cfg.n_heads}->{pc.n_heads}, kv heads "
+          f"{cfg.n_kv_heads}->{pc.n_kv_heads}, head_dim {cfg.head_dim_}->"
+          f"{pc.head_dim_}, v_head_dim {cfg.v_head_dim_}->{pc.v_head_dim_}, "
+          f"d_ff {cfg.d_ff}->{pc.d_ff}; params {cfg.param_count()}->"
+          f"{pc.param_count()}", flush=True)
+    print(f"  obspa_prune {prune_s:.2f}s: " + " | ".join(
+        f"{k} {v:.3f}s" for k, v in secs.items())
+        + f" | K4 launches {k4_launches} | peak memory "
+        f"{peak / 2**30:.2f} GiB", flush=True)
+    want = (pc.n_heads * 2 == cfg.n_heads and pc.n_kv_heads * 2 ==
+            cfg.n_kv_heads and pc.v_head_dim_ * 2 == cfg.v_head_dim_ and
+            pc.d_ff * 2 == cfg.d_ff and pc.head_dim_ == cfg.head_dim_)
+    if not want:
+        raise AssertionError(f"unexpected pruned config {pc}")
+    # one launch per 128-column block of every reconstructed consumer:
+    # wo (K = H * v_head_dim) and w_down (K = d_ff) of every layer
+    blocks = L * (math.ceil(cfg.n_heads * cfg.v_head_dim_ / k4.BLOCK)
+                  + math.ceil(cfg.d_ff / k4.BLOCK))
+    if k4_launches != blocks:
+        raise AssertionError(f"K4 launches {k4_launches} != {blocks} column "
+                             f"blocks of the reconstructed consumers")
+
+    errs = layer_output_errors(model, params, pr, calib)
+    ratios = [e_ob / e_cut for e_ob, e_cut in errs.values()]
+    bad = [k for k, (e_ob, e_cut) in errs.items() if not e_ob < e_cut]
+    print(f"  layer output error ‖X(W-W')‖² over {len(errs)} reconstructed "
+          f"consumers: OBSPA / plain slicing of the same columns = "
+          f"{min(ratios):.4f}..{max(ratios):.4f}", flush=True)
+    if len(errs) != 2 * L or bad:
+        raise AssertionError(f"OBSPA not below plain slicing at {bad} "
+                             f"({len(errs)} consumers)")
+
+    mag = prune_model(model, params, 0.5, criterion="l1")
+    with torch.no_grad():
+        ob_logits = build(pc).forward(pr.params, evalb).float()
+        mag_logits = build(mag.cfg).forward(mag.params, evalb).float()
+    mse_ob = float(((ob_logits - dense_logits) ** 2).mean())
+    mse_mag = float(((mag_logits - dense_logits) ** 2).mean())
+    print(f"  logit MSE vs the dense model on 4 x 128 tokens: OBSPA "
+          f"{mse_ob:.6f} | magnitude (l1) {mse_mag:.6f} (dense logit "
+          f"variance {float(dense_logits.var()):.6f})", flush=True)
+    if not (math.isfinite(mse_ob) and math.isfinite(mse_mag)):
+        raise AssertionError("non-finite logits after pruning")
+    del mag, mag_logits, ob_logits, dense_logits
+
+    pm = build(pc)
+    n_req, gen = (6, 8) if quick else (16, 32)
+    scfg = ServeConfig(max_seqs=16, block_size=16, max_len=640,
+                       chunk_size=128)
+    reqs = make_requests(rng, pc.vocab_size, n_req, gen, 128, 512, 256)
+    eng = Engine(pm, pr.params, scfg)
+    reset_launches()
+    out, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    k1 = launch_counts()
+    if len(out) != n_req or any(len(r.tokens) != gen for r in out.values()):
+        raise AssertionError("pruned serve: not every request finished")
+    if k1["total"] != L * int(stats["decode_calls"] + stats["prefill_calls"]) \
+            or k1["decode"] < 1 or k1["prefill"] < 1:
+        raise AssertionError(f"pruned serve: K1 launches {k1}")
+    gaps = [teacher_forced_gap(pm, pr.params, out[r]) for r in sorted(out)]
+    tf_gap = max(g for g, _ in gaps)
+    tf_match = float(np.mean([m for _, m in gaps]))
+    print(f"  served the pruned model (D={pc.head_dim_}, DV={pc.v_head_dim_},"
+          f" KH={pc.n_kv_heads}): {n_req} requests x {gen} tokens in "
+          f"{stats['wall_s']:.2f}s, decode {stats['decode_tok_per_s']:.1f} "
+          f"tok/s, K1 launches {k1}; teacher forcing vs its Model.forward: "
+          f"max logit shortfall {tf_gap:.4f} (tol 0.25), argmax agreement "
+          f"{tf_match:.3f}", flush=True)
+    if tf_gap > 0.25:
+        raise AssertionError(f"pruned teacher-forced shortfall {tf_gap}")
+    res = {
+        "model": cfg.name, "layers": L, "ratio": 0.5,
+        "calibration": "datafree 4 x 4 x 512, seed 5",
+        "pruned_cfg": {"n_heads": pc.n_heads, "n_kv_heads": pc.n_kv_heads,
+                       "head_dim": pc.head_dim_, "v_head_dim": pc.v_head_dim_,
+                       "d_ff": pc.d_ff, "params": pc.param_count()},
+        "dense_params": cfg.param_count(),
+        "prune_s": prune_s, "seconds": secs, "k4_launches": k4_launches,
+        "peak_mem_bytes": peak,
+        "layer_error_ratio_min": min(ratios),
+        "layer_error_ratio_max": max(ratios),
+        "logit_mse_obspa": mse_ob, "logit_mse_magnitude": mse_mag,
+        "serve": {"requests": n_req, "gen": gen, "wall_s": stats["wall_s"],
+                  "decode_tok_per_s": stats["decode_tok_per_s"],
+                  "total_tok_per_s": stats["total_tok_per_s"],
+                  "k1_launches": k1, "teacher_forced_shortfall": tf_gap,
+                  "argmax_agreement": tf_match},
+    }
+    del eng, pr, params
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -799,15 +1123,23 @@ def main() -> int:
     print("  TF32 off: matmul.allow_tf32=False, cudnn.allow_tf32=False",
           flush=True)
 
-    print("phase 2: build", flush=True)
-    t0 = time.time()
-    ensure_built()
-    print(f"  built {K1_SOURCE} -> {_build.library_path('paged_attention')} "
-          f"in {time.time() - t0:.1f}s (nvcc "
-          f"{_build.build_seconds.get('paged_attention', 0.0):.1f}s; set-up)",
+    print("phase 2: build (one nvcc per source, all started together)",
           flush=True)
-    log = _build.library_path("paged_attention").with_suffix(".log")
-    if log.exists():
+    t0 = time.time()
+    sources = {"paged_attention": K1_SOURCE, "obspa_update": K4_SOURCE}
+    with ThreadPoolExecutor(len(sources)) as ex:
+        for f in [ex.submit(_build.build, n) for n in sources]:
+            f.result()
+    ensure_built()
+    k4.ensure_built()
+    print(f"  built {len(sources)} libraries in {time.time() - t0:.1f}s "
+          f"(set-up)", flush=True)
+    for name, src in sources.items():
+        print(f"  {src} -> {_build.library_path(name)} (nvcc "
+              f"{_build.build_seconds.get(name, 0.0):.1f}s)", flush=True)
+        log = _build.library_path(name).with_suffix(".log")
+        if not log.exists():
+            continue
         lines = [ln for ln in log.read_text().splitlines()
                  if "registers" in ln or "spill" in ln]
         regs = [int(ln.split("Used ")[1].split(" registers")[0])
@@ -828,18 +1160,27 @@ def main() -> int:
         time_kernel("paged_attention.prefill", rng, C=128, NB=80,
                     prefill=True, iters=12),
     ]
+    k4_rel = phase_k4_checks()
+    print("phase 6b: K4 time at the main path's shape (f32)", flush=True)
+    k4_entry, k4_sweep = time_k4()
     main_res = phase_main_path(rng, args.quick, args.profile)
     kernels[0]["launches"] = main_res["k1_launches"]["decode"]
     kernels[1]["launches"] = main_res["k1_launches"]["prefill"]
     for k in kernels:
-        if k["launches"] < 1:
-            raise AssertionError(f"{k['name']} was never launched by the "
-                                 f"main path")
         k["max_abs_err"] = max(k["max_abs_err"], worst)
     dev_res = phase_device_code(rng)
+    prune_res = phase_prune_path(rng, args.quick)
+    k4_entry["launches"] = prune_res["k4_launches"]
+    k4_entry["max_rel_err_vs_oracle"] = k4_rel
+    kernels.append(k4_entry)
+    for k in kernels:
+        if k["launches"] < 1:
+            raise AssertionError(f"{k['name']} was never launched by its "
+                                 f"path")
 
     print(json.dumps({"main_path": main_res}))
     print(json.dumps({"device_code_ms": dev_res}))
+    print(json.dumps({"prune_path": prune_res, "k4_sweep": k4_sweep}))
     print(f"total {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

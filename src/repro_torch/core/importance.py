@@ -1,0 +1,84 @@
+"""Group-level importance estimation (paper Eq. 1 + App. A.4/A.5).
+
+    s_{i,j} = Norm_{CC_l in g_i}( { AGG( S(θ_k), ∀θ_k in CC_j ) } )
+
+``S`` is a per-weight criterion (L1/L2 magnitude, random); ``AGG`` collapses
+a coupled-channel set to one score; ``Norm`` makes scores comparable across
+groups.  Per-weight scores and their per-axis reductions run on the device
+the parameters live on; the per-unit sums are host (numpy) work, as in the
+reference.
+
+The gradient criteria of the reference (``snip``, ``grasp``, ``crop``) are
+not ported yet: they raise ``NotImplementedError`` naming their ROADMAP.md
+entry.  ``random`` draws from a seeded ``torch.Generator``: it cannot
+reproduce JAX's PRNG bits, only their distribution.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.graph import tree_map_paths, tree_paths
+from repro_torch.core.groups import Group
+
+GRADIENT_CRITERIA = ("snip", "grasp", "crop")
+_LATER = ("ROADMAP.md Queue 1 item 5 (gradient criteria snip/grasp/crop "
+          "need the training slice's gradients)")
+
+
+def leaf_scores(params, criterion: str, seed: int = 0):
+    """Per-weight importance S(θ) as an f32 tree of the same nesting."""
+    if criterion in ("l1", "magnitude"):
+        return tree_map_paths(lambda _, x: x.float().abs(), params)
+    if criterion == "l2":
+        return tree_map_paths(lambda _, x: x.float().square(), params)
+    if criterion in GRADIENT_CRITERIA:
+        raise NotImplementedError(f"criterion {criterion!r} is not ported "
+                                  f"yet — {_LATER}")
+    if criterion == "random":
+        leaves = tree_paths(params)
+        dev = leaves[0][1].device if leaves else torch.device("cpu")
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(int(seed))
+        return tree_map_paths(
+            lambda _, x: torch.rand(x.shape, generator=gen, device=x.device,
+                                    dtype=torch.float32), params)
+    raise ValueError(f"unknown criterion {criterion!r}")
+
+
+def unit_scores(groups: list[Group], scores, agg: str = "mean",
+                norm: str = "mean") -> dict[str, np.ndarray]:
+    """Eq. 1: per-group arrays of unit scores (len == n_units).
+
+    ``agg`` is ``mean`` or ``sum`` over a unit's weights; ``norm`` is
+    ``mean`` (divide by the group's mean) or ``none`` — the values the
+    port's callers use (the reference's other choices serve no caller)."""
+    if agg not in ("mean", "sum") or norm not in ("mean", "none"):
+        raise ValueError(f"unit_scores: agg {agg!r} / norm {norm!r}")
+    by_path = dict(tree_paths(scores))
+
+    out: dict[str, np.ndarray] = {}
+    for gr in groups:
+        # cache per-(path, axis) position sums/counts
+        cache: dict[tuple[str, int], tuple[np.ndarray, int]] = {}
+        for sl in gr.units[0].slices:
+            leaf = by_path[sl.path]
+            other = tuple(a for a in range(leaf.ndim) if a != sl.axis)
+            red = leaf.sum(dim=other) if other else leaf
+            cnt = int(np.prod([leaf.shape[a] for a in other])) if other else 1
+            cache[(sl.path, sl.axis)] = (red.cpu().numpy(), cnt)
+
+        vals = np.zeros(gr.n_units, np.float64)
+        counts = np.zeros(gr.n_units, np.float64)
+        for u, cc in enumerate(gr.units):
+            for sl in cc.slices:
+                red, cnt = cache[(sl.path, sl.axis)]
+                pos = np.asarray(sl.positions)
+                vals[u] += float(red[pos].sum())
+                counts[u] += cnt * len(pos)
+        if agg == "mean":
+            vals = vals / np.maximum(counts, 1)
+        if norm == "mean":
+            vals = vals / max(vals.mean(), 1e-12)
+        out[gr.key] = vals
+    return out

@@ -1,0 +1,202 @@
+"""Pruning orchestration: analyze → group → score → select → physically slice.
+
+The output of ``prune_model`` is a *new* (params, config) pair with smaller
+dims — structured pruning as a real shape change (paper Step 4): the pruned
+model runs smaller products and a smaller KV cache through the same kernels.
+
+Selection is per group: the lowest-scoring fraction of every prunable group
+goes (layers stay uniform, which the stacked layer layout needs).  The
+reference's ``global`` mode serves the CNN family and waits for its slice.
+``align_units`` keeps its reference meaning and default (1: no rounding).
+
+The dense family is ported; the CNN, MoE and SSM branches raise
+``NotImplementedError`` naming their ROADMAP.md item.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.graph import (CompGraph, trace_graph, tree_map_paths,
+                                    tree_paths)
+from repro_torch.core.groups import Group, build_groups
+from repro_torch.core.importance import leaf_scores, unit_scores
+from repro_torch.models import transformer as tf
+
+
+@dataclasses.dataclass
+class PruneResult:
+    params: Any                 # pruned params, original (stacked) structure
+    cfg: ArchConfig
+    report: dict
+    groups: list[Group]
+    pruned_units: dict[str, list[int]]
+
+
+# ---------------------------------------------------------------------------
+# Analysis
+# ---------------------------------------------------------------------------
+
+def analysis_seq(cfg: ArchConfig) -> int:
+    """Tokens of the analysis trace: 8, or more to reach a sliding window."""
+    s = 8
+    if cfg.sliding_window:
+        s = max(s, min(cfg.sliding_window, 32))
+    return s
+
+
+def trace_model(model, params, batch=None) -> tuple[CompGraph, Any]:
+    """Trace the model's unrolled forward over its layers as a list.
+    Returns (graph, analysis-form params)."""
+    cfg = model.cfg
+    tf.require_dense(cfg)
+    if batch is None:
+        dev = tree_paths(params)[0][1].device
+        batch = model.dummy_batch(1, analysis_seq(cfg), device=dev)
+    ap = tf.unstack_layers(params, cfg.num_layers)
+    g = trace_graph(lambda p, b: model.forward(p, b), ap, batch)
+    return g, ap
+
+
+def analyze(model, params) -> tuple[CompGraph, list[Group], Any]:
+    """Trace + group.  Returns (graph, groups, analysis-form params).  The
+    reference's MoE hints (``merge_by_hints``) wait for the MoE slice."""
+    g, ap = trace_model(model, params)
+    return g, build_groups(g), ap
+
+
+def prunable(groups: list[Group]) -> list[Group]:
+    return [gr for gr in groups if not gr.protected]
+
+
+# ---------------------------------------------------------------------------
+# Selection
+# ---------------------------------------------------------------------------
+
+def _aligned_keep(n_units: int, n_prune: int, align: int, min_keep: int) -> int:
+    keep = n_units - n_prune
+    keep = max(keep, min_keep, 1)
+    if align > 1:
+        keep = max((keep // align) * align, min(align, n_units))
+    return keep
+
+
+def _group_align(gr: Group, align_units: int, mesh_divisor: int) -> int:
+    """Units-alignment so pruned axis sizes stay mesh-divisible: if a
+    coupled axis is divisible by the mesh before pruning, keep it divisible
+    after (pruning qwen3's KV groups 8 -> 4 left 8 query heads, which no
+    longer divided a 16-way model axis)."""
+    a = align_units
+    if mesh_divisor > 1:
+        # every coupled axis that is mesh-divisible now must stay so
+        # (e.g. the q-head axis reached from a KV-group seed)
+        for sl in gr.units[0].slices:
+            u = len(sl.positions)
+            total = u * gr.n_units
+            if total % mesh_divisor == 0:
+                need = mesh_divisor // math.gcd(u, mesh_divisor)
+                a = a * need // math.gcd(a, need)
+    return a
+
+
+def select_units(groups: list[Group], scores: dict[str, np.ndarray],
+                 ratio: float, align_units: int = 1, min_keep: int = 1,
+                 mesh_divisor: int = 0) -> dict[str, list[int]]:
+    """Per group: the lowest-scoring ``round(n * ratio)`` units (aligned)."""
+    pruned: dict[str, list[int]] = {}
+    for gr in groups:
+        s = scores[gr.key]
+        n = gr.n_units
+        a = _group_align(gr, align_units, mesh_divisor)
+        keep = _aligned_keep(n, int(round(n * ratio)), a, min_keep)
+        order = np.argsort(s, kind="stable")
+        pruned[gr.key] = sorted(int(i) for i in order[: n - keep])
+    return pruned
+
+
+# ---------------------------------------------------------------------------
+# Execution: physical slicing
+# ---------------------------------------------------------------------------
+
+def delete_positions(groups: list[Group], pruned: dict[str, list[int]],
+                     ) -> dict[tuple[str, int], set[int]]:
+    dele: dict[tuple[str, int], set[int]] = {}
+    for gr in groups:
+        for u in pruned.get(gr.key, ()):
+            for sl in gr.units[u].slices:
+                dele.setdefault((sl.path, sl.axis), set()).update(sl.positions)
+    return dele
+
+
+def apply_pruning(analysis_params, dele: dict[tuple[str, int], set[int]]):
+    """New tensors without the deleted positions (``index_select`` on the
+    device each leaf lives on); untouched leaves are kept as they are."""
+    by_path: dict[str, list[tuple[int, set[int]]]] = {}
+    for (path, axis), pos in dele.items():
+        by_path.setdefault(path, []).append((axis, pos))
+
+    def slice_leaf(path, leaf):
+        for axis, pos in by_path.get(path, ()):  # slice each pruned axis
+            keep = [i for i in range(leaf.shape[axis]) if i not in pos]
+            leaf = leaf.index_select(
+                axis, torch.tensor(keep, dtype=torch.long, device=leaf.device))
+        return leaf
+
+    return tree_map_paths(slice_leaf, analysis_params)
+
+
+def infer_config(cfg: ArchConfig, analysis_params) -> ArchConfig:
+    """Read the pruned dims back into a new ArchConfig."""
+    tf.require_dense(cfg)
+    layer0 = analysis_params["layers"][0]
+    kw: dict[str, Any] = {"name": cfg.name + "-pruned"}
+    if "attn" in layer0:
+        kw["n_heads"] = int(layer0["attn"]["wq"].shape[1])
+        kw["n_kv_heads"] = int(layer0["attn"]["wk"].shape[1])
+        kw["head_dim"] = int(layer0["attn"]["wq"].shape[2])
+        kw["v_head_dim"] = int(layer0["attn"]["wv"].shape[2])
+    if "mlp" in layer0:
+        kw["d_ff"] = int(layer0["mlp"]["w_down"].shape[0])
+    return cfg.replace(**kw)
+
+
+def restack(cfg: ArchConfig, analysis_params):
+    tf.require_dense(cfg)
+    return tf.stack_layers(analysis_params)
+
+
+# ---------------------------------------------------------------------------
+# Top-level
+# ---------------------------------------------------------------------------
+
+def prune_model(model, params, ratio: float, criterion: str = "l1",
+                align_units: int = 1, seed: int = 0, mesh_divisor: int = 0
+                ) -> PruneResult:
+    """End-to-end SPA pruning (paper §3.2 four steps), per group.
+
+    ``align_units`` rounds kept unit counts to a multiple (1: none);
+    ``mesh_divisor`` keeps previously divisible axes divisible by a
+    tensor-parallel degree."""
+    cfg = model.cfg
+    graph, groups, ap = analyze(model, params)
+    targets = prunable(groups)
+    scores_tree = leaf_scores(ap, criterion, seed=seed)
+    scores = unit_scores(targets, scores_tree)
+    pruned = select_units(targets, scores, ratio, align_units=align_units,
+                          mesh_divisor=mesh_divisor)
+    dele = delete_positions(targets, pruned)
+    new_ap = apply_pruning(ap, dele)
+    new_cfg = infer_config(cfg, new_ap)
+    new_params = restack(new_cfg, new_ap)
+
+    report = {
+        "criterion": criterion, "ratio": ratio, "mode": "per_group",
+        "groups_total": len(groups), "groups_pruned": len(targets),
+        "units_pruned": {k: len(v) for k, v in pruned.items() if v},
+    }
+    return PruneResult(new_params, new_cfg, report, targets, pruned)

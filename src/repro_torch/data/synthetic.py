@@ -1,0 +1,87 @@
+"""Deterministic synthetic data for the LM families: a learnable task and the
+calibration samplers, drawn with numpy exactly as the reference's
+``repro/data/synthetic.py`` draws them, so a seed gives identical tokens.
+
+The paper's OBSPA experiments need three calibration regimes (§3.3):
+  ID       — samples from the training distribution
+  OOD      — samples from a *different* distribution of the same modality
+  DataFree — uniform noise, no data access at all
+
+LM tasks are order-2 Markov chains (learnable bigram structure).  The task's
+``(vocab, vocab)`` transition matrix is built only when the mode samples from
+it: ``datafree`` never does, and at a 32000-token vocabulary the matrix
+alone is 8 GB.  The image and audio tasks wait for their families
+(ROADMAP.md Queue 1 item 14).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+
+_LATER = "ROADMAP.md Queue 1 item 14 (MoE, CNN, audio, VLM)"
+
+
+@dataclasses.dataclass
+class MarkovLM:
+    vocab: int
+    seed: int = 0
+    temp: float = 3.0      # peaked transitions -> argmax acc is learnable
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        logits = rng.normal(size=(self.vocab, self.vocab)) * self.temp
+        self.T = np.exp(logits - logits.max(-1, keepdims=True))
+        self.T /= self.T.sum(-1, keepdims=True)
+
+    def sample(self, rng: np.random.Generator, batch: int, seq: int
+               ) -> np.ndarray:
+        out = np.empty((batch, seq), np.int32)
+        out[:, 0] = rng.integers(0, self.vocab, batch)
+        for t in range(1, seq):
+            p = self.T[out[:, t - 1]]
+            c = p.cumsum(-1)
+            u = rng.random((batch, 1))
+            out[:, t] = (u < c).argmax(-1)
+        return out
+
+
+def make_task(cfg, mode: str = "id", seed: int = 0) -> MarkovLM:
+    """A data source for (cfg, mode).  OOD = different seed."""
+    if cfg.family in ("cnn", "audio", "vlm"):
+        raise NotImplementedError(f"{cfg.family} data is not ported yet — "
+                                  f"{_LATER}")
+    s = seed if mode == "id" else seed + 7919
+    return MarkovLM(cfg.vocab_size, seed=s)
+
+
+def batches(cfg, mode: str, n_batches: int, batch: int, seq: int,
+            seed: int = 0, task_seed: int = 0, device=None) -> list[dict]:
+    """Calibration / training batches ``{"tokens": (batch, seq) int32}`` on
+    ``device`` (None: the CUDA device).  mode: id | ood | datafree | eval.
+
+    ``task_seed`` fixes the task identity (transition matrix); ``seed`` only
+    drives sampling — so every batch draws from the SAME learnable
+    distribution.
+    """
+    if cfg.family in ("cnn", "audio", "vlm"):
+        raise NotImplementedError(f"{cfg.family} batches are not ported yet "
+                                  f"— {_LATER}")
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed + {"id": 0, "ood": 1, "datafree": 2,
+                                        "eval": 3}[mode])
+    task = None
+    if mode != "datafree":
+        task = make_task(cfg, "ood" if mode == "ood" else "id",
+                         seed=task_seed)
+    out = []
+    for _ in range(n_batches):
+        if task is None:
+            toks = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+        else:
+            toks = task.sample(rng, batch, seq)
+        out.append({"tokens": torch.from_numpy(toks).to(dev)})
+    return out

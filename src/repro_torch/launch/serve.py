@@ -4,7 +4,7 @@
       --requests 16 --prompt-len 32 --gen 32 \
       --max-seqs 8 --block-size 16 --chunk-size 32 --prefill-budget 64 \
       [--reduced] [--no-prefix-caching] [--temperature 0.8] \
-      [--cache-dtype int8] [--device cpu]
+      [--cache-dtype int8] [--prune-ratio 0.5 [--obspa]] [--device cpu]
 
 Runs on the CUDA device; ``--device cpu`` asks for the CPU explicitly (the
 paged-attention kernel then gives way to its plain PyTorch version).  The
@@ -15,6 +15,12 @@ per step per slot, ``--prefill-budget`` tokens per step across slots;
 ``--chunk-size 0`` restores token-by-token prefill), and requests sharing a
 prompt prefix alias full KV blocks via refcounted prefix caching unless
 ``--no-prefix-caching``.
+
+``--prune-ratio`` structurally prunes the model before serving it: by L1
+magnitude per group (``core.pruner.prune_model``), or with ``--obspa`` by
+OBSPA with data-free calibration (4 batches of 4 x ``--prompt-len`` uniform
+tokens, the reference CLI's calibration), whose sweeps run the K4 kernel on
+the card.
 
 ``generate`` (sequential, token-by-token over a contiguous cache) is kept as
 the correctness oracle the engine is tested against.
@@ -91,6 +97,12 @@ def main(argv: list[str] | None = None) -> None:
                     help="KV pool dtype: float32/bfloat16 cast; "
                          "int8/fp8_e4m3 quantize with fused kernel "
                          "dequant (default: model dtype)")
+    ap.add_argument("--prune-ratio", type=float, default=0.0,
+                    help="structurally prune this fraction of every "
+                         "prunable group before serving (0 = dense)")
+    ap.add_argument("--obspa", action="store_true",
+                    help="with --prune-ratio: OBSPA with data-free "
+                         "calibration instead of L1 magnitude")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run without a GPU (default: the CUDA "
                          "device; fails when there is none)")
@@ -106,6 +118,22 @@ def main(argv: list[str] | None = None) -> None:
         raise SystemExit(f"{args.arch} is encoder-only; no decode path")
     model = build(cfg)
     params = model.init(args.seed, device=device)
+
+    if args.prune_ratio:
+        if args.obspa:
+            from repro_torch.core.obspa import obspa_prune
+            from repro_torch.data.synthetic import batches
+            calib = batches(cfg, "datafree", 4, 4, args.prompt_len, seed=5,
+                            device=device)
+            pr = obspa_prune(model, params, args.prune_ratio, calib,
+                             calib_mode="datafree")
+        else:
+            from repro_torch.core.pruner import prune_model
+            pr = prune_model(model, params, args.prune_ratio)
+        model, params = build(pr.cfg), pr.params
+        print(f"serving pruned model: {pr.cfg.name} (heads {pr.cfg.n_heads},"
+              f" kv heads {pr.cfg.n_kv_heads}, v_head_dim "
+              f"{pr.cfg.v_head_dim_}, d_ff {pr.cfg.d_ff})")
 
     toks, lens = synthetic_prompts(cfg.vocab_size, args.requests,
                                    args.prompt_len, args.seed)

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
@@ -65,6 +66,16 @@ class Model:
         not just the last valid one."""
         return tf.paged_verify_step(params, self.cfg, cache, tokens,
                                     positions, slots, block_tables, valid)
+
+    # ----- concrete dummy data (analysis traces, smoke tests) -----
+    def dummy_batch(self, batch: int, seq: int, seed: int = 0,
+                    device=None) -> dict:
+        """Seeded random tokens ``(batch, seq)`` int32, drawn with numpy so
+        that every device sees the same values."""
+        rng = np.random.default_rng(seed)
+        toks = rng.integers(0, self.cfg.vocab_size, size=(batch, seq))
+        return {"tokens": torch.from_numpy(toks.astype(np.int32)).to(
+            resolve_device(device))}
 
 
 def build(cfg: ArchConfig) -> Model:
