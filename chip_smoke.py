@@ -29,14 +29,26 @@ nothing of JAX or of the JAX package.  Phases:
     K4), every reconstructed layer's output error held below plain slicing,
     logit MSE against the dense model for OBSPA and for magnitude pruning,
     then the pruned model (D != DV) served by ``Engine`` through K1 and
-    checked by teacher forcing against its own ``Model.forward``.
+    checked by teacher forcing against its own ``Model.forward``;
+ 8. the SSD chunked-scan kernel K3 against its plain PyTorch version and a
+    float64 run of it (the reference's four test shapes, full-width and
+    pruned Mamba-2 shapes with x f32 and B/C bf16, a large-dt case whose
+    exp above the diagonal would overflow), and its time beside the plain
+    version and the card's bound;
+ 9. the main path of the ssm family at full width: ``mamba2-1.3b`` (48
+    layers, d 2048, 64 SSM heads x 64, state 128, bf16, random weights from
+    a seed) — ``Model.forward`` on K3 against the plain scan, 16 requests
+    served by ``Engine`` (a third behind a shared prefix that must not be
+    aliased), every served token checked by teacher forcing through
+    ``Model.forward`` (K3); then SPA-pruned by magnitude (L1) at ratio 0.5
+    on the card and the same checks on the pruned model.
 
 The kernels are built in parallel (one ``nvcc`` per source).  Any failing
 phase raises, so the exit code is non-zero and no ``"ok"`` line
 is printed.  TF32 is off for matmuls and cuDNN throughout.
 
-``--quick`` cuts phases 4 and 7 to 4 layers and a few requests (for a first look at
-a new kernel); ``--profile`` adds a ``torch.profiler`` trace of one decode
+``--quick`` cuts phases 4, 7 and 9 to 4 layers and a few requests (for a
+first look at a new kernel); ``--profile`` adds a ``torch.profiler`` trace of one decode
 and one prefill step (device busy share, top kernels).  The default is the
 full run without the trace.
 """
@@ -66,11 +78,15 @@ from repro_torch.core.pruner import prune_model  # noqa: E402
 from repro_torch.data.synthetic import batches  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import obspa_update as k4  # noqa: E402
+from repro_torch.kernels import ssd_scan as k3  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     ensure_built, expected_visits, launch_counts, paged_attention,
     paged_prefill_attention, quantize, reset_launches)
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models.attention import _scatter_kv  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.models.ssm import ssd_reference, ssm_block  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates)
@@ -108,6 +124,13 @@ K4_REPLACES = "src/repro/kernels/obspa_update/obspa_update.py:50"
 # tests/test_kernels.py holds the reference's sweep to (f32 chains of up to
 # K rank-1 steps round differently from float64)
 K4_RTOL = 1e-4
+K3_SOURCE = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+K3_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:71"
+# K3 vs its plain version: max|Δ| / max|plain|, the reference's limits
+# (tests/test_kernels.py::test_ssd_scan) by the type of y (x's): both sides
+# compute in f32 from the same (possibly bf16-valued) inputs, in another
+# order; a bf16 y adds one bf16 rounding
+K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 
 DEV = "cuda"
 
@@ -1093,10 +1116,456 @@ def phase_prune_path(rng, quick: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the SSD chunked-scan kernel (K3) vs its plain version
+# ---------------------------------------------------------------------------
+
+# the full-width shape and the 50 %-pruned one (SPA at ratio 0.5 halves the
+# SSM heads, their head_dim and the state; phase 9 checks that infer_config
+# gives these): x f32 (dt applied in f32), B/C in the bf16 model dtype
+K3_FULL = dict(b=4, l=1024, h=64, p=64, n=128, Q=128)
+K3_PRUNED = dict(b=4, l=1024, h=32, p=32, n=64, Q=128)
+
+
+def ssd_case(seed, b, l, h, p, n, x_dtype, bc_dtype, dt_lo=0.05,
+             dt_span=0.5, model_A=False):
+    """x·dt, dt, A, B, C on the card from a seeded generator, drawn as the
+    reference's test draws them (``model_A``: A = -linspace(1, 16), the
+    model's initial decay rates)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    x = torch.randn((b, l, h, p), generator=gen, device=DEV)
+    dt = torch.rand((b, l, h), generator=gen, device=DEV) * dt_span + dt_lo
+    A = -torch.randn((h,), generator=gen, device=DEV).abs() - 0.1
+    if model_A:
+        A = -torch.linspace(1.0, 16.0, h, device=DEV)
+    B = torch.randn((b, l, n), generator=gen, device=DEV).to(bc_dtype)
+    C = torch.randn((b, l, n), generator=gen, device=DEV).to(bc_dtype)
+    return (x * dt[..., None]).to(x_dtype), dt, A, B, C
+
+
+def ssd_rel(a, b) -> float:
+    """max|a - b| / max|b| (the reference's measure)."""
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max().clamp(min=1e-30))
+
+
+def check_ssd(name, Q, args) -> float:
+    """K3 against the plain version (f32, same card) at the reference's
+    tolerance, and both against the plain version run in float64 on the
+    same inputs, so that a miss says which side errs."""
+    y = k3.ssd_scan(*args, Q)
+    torch.cuda.synchronize()
+    plain = k3.ssd_scan_ref(*args, Q)
+    gold = ssd_reference(*[t.double() for t in args], Q)[0]
+    tol = K3_TOL[args[0].dtype]         # y comes back in x's dtype
+    e_plain, e_gold = ssd_rel(y, plain), ssd_rel(y, gold)
+    e_pg = ssd_rel(plain, gold)
+    ok = e_plain < tol and e_gold < tol and bool(torch.isfinite(y).all())
+    print(f"  {name:44s} rel err vs plain {e_plain:.2e}, vs float64 "
+          f"{e_gold:.2e} (plain vs float64 {e_pg:.2e}; tol {tol:g}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"K3 {name}: rel err {e_plain} / {e_gold}")
+    return max(e_plain, e_gold)
+
+
+def phase_k3_checks() -> float:
+    print("phase 8: SSD chunked-scan kernel (K3) vs plain PyTorch version",
+          flush=True)
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = 0.0
+    # the reference's grid (tests/test_kernels.py::test_ssd_scan)
+    for i, (b, l, h, p, n, Q, dt_) in enumerate([
+            (2, 64, 4, 16, 16, 16, f32), (1, 256, 2, 32, 64, 64, f32),
+            (2, 128, 8, 64, 128, 32, f32), (1, 64, 2, 16, 32, 32, bf16)]):
+        worst = max(worst, check_ssd(
+            f"b={b} l={l} h={h} p={p} n={n} Q={Q} {str(dt_)[6:]}", Q,
+            ssd_case(200 + i, b, l, h, p, n, dt_, dt_)))
+    for label, sh in (("full width", K3_FULL), ("pruned", K3_PRUNED)):
+        d = dict(sh)
+        Q = d.pop("Q")
+        worst = max(worst, check_ssd(
+            f"{label} {tuple(d.values())} Q={Q} x f32, B/C bf16", Q,
+            ssd_case(210, **d, x_dtype=f32, bc_dtype=bf16)))
+    # dt in [1, 4] with A down to -16: dt·|A|·Q reaches 8192, so exp above
+    # the diagonal would overflow; the kernel must select it away
+    d = dict(K3_FULL, b=2, l=512)
+    Q = d.pop("Q")
+    worst = max(worst, check_ssd(
+        f"large dt (dt 1..4, A -1..-16, Q={Q}), finite", Q,
+        ssd_case(220, **d, x_dtype=f32, bc_dtype=bf16, dt_lo=1.0,
+                 dt_span=3.0, model_A=True)))
+    return worst
+
+
+def ssd_work(b, l, h, p, n, Q, x_dtype, bc_dtype
+             ) -> tuple[int, int, int, float]:
+    """(bytes, C Bᵀ flops, per-head flops, least seconds of arithmetic) of
+    one scan.  Bytes: x read and y written once, dt, A, B, C read once.
+    Operations, over the lower triangle i >= j only (above it M is 0 by
+    definition): C Bᵀ once per (batch, chunk) — B and C carry no head axis —
+    at the peak of B/C's type; per (batch, head, chunk) M x, C stateᵀ and
+    the state update, which take the f32 x or the f32 state, at the f32
+    CUDA-core peak."""
+    x_bytes = torch.tensor([], dtype=x_dtype).element_size()
+    bc_bytes = torch.tensor([], dtype=bc_dtype).element_size()
+    nbytes = 2 * b * l * h * p * x_bytes + 2 * b * l * n * bc_bytes \
+        + b * l * h * 4 + h * 4
+    tri = Q * (Q + 1) // 2
+    cb_flops = b * (l // Q) * 2 * tri * n
+    head_flops = b * h * (l // Q) * (2 * tri * p + 2 * Q * n * p
+                                     + 2 * Q * p * n)
+    seconds = cb_flops / PEAK_FLOPS[bc_dtype] \
+        + head_flops / PEAK_FLOPS[torch.float32]
+    return nbytes, cb_flops, head_flops, seconds
+
+
+def time_k3(iters: int = 10) -> dict:
+    """K3 and its plain version at the full-width shape of the main path's
+    forward (x f32, B/C bf16), interleaved plain, kernel, kernel, plain."""
+    d = dict(K3_FULL)
+    Q = d.pop("Q")
+    args = ssd_case(230, **d, x_dtype=torch.float32, bc_dtype=torch.bfloat16)
+    y = k3.ssd_scan_kernel(*args, Q)
+    plain_y = k3.ssd_scan_ref(*args, Q)
+    torch.cuda.synchronize()
+    max_err = float((y - plain_y).abs().max())
+    kern = lambda i: k3.ssd_scan_kernel(*args, Q)
+    plain = lambda i: k3.ssd_scan_ref(*args, Q)
+    plain_a = time_ms(plain, iters=3, warmup=1)
+    kern_a = time_ms(kern, iters=iters)
+    kern_b = time_ms(kern, iters=iters)
+    plain_b = time_ms(plain, iters=3, warmup=1)
+    device = kernel_device_ms(kern, "ssd_scan_kernel", iters)
+    nbytes, cb_flops, head_flops, seconds = ssd_work(
+        **d, Q=Q, x_dtype=torch.float32, bc_dtype=torch.bfloat16)
+    flops = cb_flops + head_flops
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = seconds * 1e3
+    entry = {
+        "name": "ssd_scan", "route": "cuda", "source": K3_SOURCE,
+        "replaces": K3_REPLACES, "launches": 0, "max_abs_err": max_err,
+        "ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
+        "bound_ms": max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "library_ms": None,
+        "shape": dict(K3_FULL, x="float32", bc="bfloat16"),
+        "bytes": nbytes, "flops": flops, "flops_cb_bf16": cb_flops,
+        "flops_f32": head_flops, "device_ms": device,
+        "peak": "C Bᵀ at bf16 989 TFLOP/s, the rest at f32 CUDA cores "
+                "67 TFLOP/s, HBM 3.35 TB/s",
+    }
+    print(f"  ssd_scan {tuple(d.values())} Q={Q}: kernel {entry['ms']:.4f} "
+          f"ms | plain {entry['plain_ms']:.4f} ms | library none | bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: C Bᵀ "
+          f"{cb_flops / 1e9:.4f} GFLOP at 989 TFLOP/s bf16 + "
+          f"{head_flops / 1e9:.3f} GFLOP at 67 TFLOP/s f32 CUDA cores = "
+          f"{t_flops:.4f} ms; "
+          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {t_bytes:.4f} ms) | max abs "
+          f"err {max_err:.2e} | device time per launch (profiler) "
+          f"{'not measured' if device is None else f'{device:.4f} ms'}",
+          flush=True)
+    del args, y, plain_y
+    torch.cuda.empty_cache()
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: Mamba-2 prune then serve, at full width
+# ---------------------------------------------------------------------------
+
+def n_params(tree) -> int:
+    """Parameters held by a tree of tensors, counted from the tensors."""
+    if isinstance(tree, dict):
+        return sum(n_params(v) for v in tree.values())
+    return tree.numel()
+
+
+def f32_tree(tree):
+    """The same nesting of tensors, in float32."""
+    if isinstance(tree, dict):
+        return {k: f32_tree(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def first_layers(params, n: int):
+    """The parameters of a model cut to its first ``n`` layers (views of the
+    stacked layer tensors)."""
+    out = dict(params)
+    out["layers"] = tf._tree_map(lambda a: a[:n], params["layers"])
+    return out
+
+
+# bf16 checks at a depth where rounding has not grown yet.  Layer by layer,
+# each SSD block gets the same bf16 input on K3 and on the plain scan; both
+# round f32 scans that agree to ~1e-6 to bf16, so where a rounding falls
+# differently an output is one bf16 step apart: max|Δ| / max|plain| is held
+# to 2^-7.  The model cut to its first SHALLOW_LAYERS layers is served in
+# bf16; its forward on K3 vs the plain one, and every served token's
+# teacher-forced shortfall, are held to two bf16 steps of the largest logit
+# (2^-6 · max|logit|): at this depth the plain version's own rounding
+# spread (chunk 64 vs 128) is one step, by 4 layers it is seven.
+BF16_BLOCK_TOL = 2.0 ** -7
+SHALLOW_LAYERS = 2
+BF16_SHALLOW_TOL = 2.0 ** -6
+
+
+def blocks_vs_plain(model, params) -> dict:
+    """Every layer's SSD block on K3 against the plain scan, on the input
+    the plain forward gives that layer (2 x 512 tokens): max|Δ| / max|plain|
+    per layer.  Launches K3 once per layer."""
+    cfg = model.cfg
+    plain = cfg.replace(use_kernels=False)
+    toks = model.dummy_batch(2, 512, seed=12)["tokens"]
+    errs = []
+    with torch.no_grad():
+        h = params["tok_embed"][toks.long()]
+        for lp in tf.unstack_layers(params, cfg.num_layers)["layers"]:
+            hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+            a = ssm_block(lp["ssm"], cfg, hn)
+            b = ssm_block(lp["ssm"], plain, hn)
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{cfg.dtype} SSD block on K3, layer "
+                                     f"{len(errs)}: non-finite output")
+            errs.append(ssd_rel(a, b))
+            h = h + b
+    return {"max_rel": max(errs), "worst_layer": int(np.argmax(errs)),
+            "per_layer": errs}
+
+
+def forward_vs_plain(model, params) -> dict:
+    """``Model.forward`` on K3 against the plain scan (``use_kernels=False``)
+    on 2 x 512 tokens: the max logit difference, beside the same plain
+    forward with chunk 64 instead of 128 — a change of rounding only, which
+    measures how far this model's logits move under rounding alone."""
+    batch = model.dummy_batch(2, 512, seed=11)
+    cfg = model.cfg
+    with torch.no_grad():
+        a = model.forward(params, batch).float()
+        b = build(cfg.replace(use_kernels=False)).forward(params,
+                                                          batch).float()
+        c = build(cfg.replace(use_kernels=False, ssm_chunk=64)).forward(
+            params, batch).float()
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{cfg.dtype} forward on K3: non-finite logits")
+    return {"k3_vs_plain": float((a - b).abs().max()),
+            "plain_vs_plain_chunk64": float((b - c).abs().max()),
+            "plain_max_abs": float(b.abs().max()),
+            "argmax_agreement_k3_plain": float(
+                (a.argmax(-1) == b.argmax(-1)).float().mean()),
+            "argmax_agreement_plain_chunk64": float(
+                (b.argmax(-1) == c.argmax(-1)).float().mean())}
+
+
+def serve_and_force(model, params, reqs, scfg) -> dict:
+    """Serve ``reqs`` through the engine, then feed every served sequence
+    through ``Model.forward`` (which runs K3) and measure, per emitted token,
+    how far its logit falls short of the forward's maximum.  The shared
+    prefix of a third of the prompts must alias nothing: the recurrent
+    family's prefix gate is off."""
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(model, params, scfg)
+    out, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    gen = reqs[0]["max_new_tokens"]
+    if len(out) != len(reqs) or any(len(r.tokens) != gen
+                                    for r in out.values()):
+        raise AssertionError("not every request finished with its tokens")
+    if eng.cache_host.prefix_hits or stats["cow_copies"] or \
+            eng.cache_host.allocator.total_allocated < sum(
+                -(-(len(r["prompt"]) + gen - 1) // scfg.block_size)
+                for r in reqs):
+        raise AssertionError("a block was shared: prefix caching must be "
+                             "off for the ssm family")
+    gaps = [teacher_forced_gap(model, params, out[r]) for r in sorted(out)]
+    return {"requests": len(out), "gen": gen, "wall_s": stats["wall_s"],
+            "steps": stats["steps"], "decode_calls": stats["decode_calls"],
+            "prefill_calls": stats["prefill_calls"],
+            "decode_tok_per_s": stats["decode_tok_per_s"],
+            "total_tok_per_s": stats["total_tok_per_s"],
+            "mean_ttft_s": stats["mean_ttft_s"],
+            "prefix_hits": eng.cache_host.prefix_hits,
+            "peak_mem_bytes": peak,
+            "teacher_forced_shortfall": max(g for g, _ in gaps),
+            "argmax_agreement": float(np.mean([m for _, m in gaps])),
+            "forced_forwards": len(gaps)}
+
+
+def check_mamba2(label, model, params, reqs, scfg) -> tuple[dict, int]:
+    """Forward and serve checks of one model: in bf16 (the deployment type)
+    layer by layer and at full depth, in bf16 cut to its first
+    SHALLOW_LAYERS layers, and in float32 on the same weights.  At random
+    init this 48-layer model amplifies rounding (one bf16 step in an early
+    layer grows to logit moves of ~2 by the last), so at full depth in bf16
+    the forward is held against the plain version's own rounding spread; the
+    sharp bf16 checks run where rounding has not grown (each block alone,
+    and the shallow model), and at full depth the sharp checks (phases 4
+    and 7's teacher-forcing criterion) run in float32, where one rounding
+    is ~1e-7.  Returns (results, K3 launches these checks make)."""
+    res = {}
+    cfg = model.cfg
+    m32 = build(cfg.replace(dtype="float32"))
+    p32 = f32_tree(params)
+    n = SHALLOW_LAYERS
+    shallow = build(cfg.replace(num_layers=n))
+    p_sh = first_layers(params, n)
+    blocks = blocks_vs_plain(model, params)
+    print(f"  {label} bfloat16 layer by layer: SSD block on K3 vs plain, "
+          f"2 x 512 tokens, max|Δ|/max|plain| {blocks['max_rel']:.2e} "
+          f"(layer {blocks['worst_layer']}; tol {BF16_BLOCK_TOL:.2e}, one "
+          f"bf16 step)", flush=True)
+    launches = cfg.num_layers
+    for name, m, p in (("bfloat16", model, params),
+                       (f"bfloat16 first {n} layers", shallow, p_sh),
+                       ("float32", m32, p32)):
+        fwd = forward_vs_plain(m, p)
+        r = serve_and_force(m, p, reqs, scfg)
+        r["forward"] = fwd
+        res[name] = r
+        launches += m.cfg.num_layers * (1 + r["forced_forwards"])
+        print(f"  {label} {name}: forward on K3 vs plain, 2 x 512 tokens: "
+              f"max logit diff {fwd['k3_vs_plain']:.4f} (plain vs plain at "
+              f"chunk 64: {fwd['plain_vs_plain_chunk64']:.4f}), argmax "
+              f"agreement {fwd['argmax_agreement_k3_plain']:.3f} "
+              f"({fwd['argmax_agreement_plain_chunk64']:.3f}) | served "
+              f"{r['requests']} x {r['gen']} tokens in {r['wall_s']:.2f}s, "
+              f"decode {r['decode_tok_per_s']:.1f} tok/s, prefill+decode "
+              f"{r['total_tok_per_s']:.1f} tok/s, mean TTFT "
+              f"{r['mean_ttft_s'] * 1e3:.1f} ms, {r['steps']:.0f} steps "
+              f"({r['decode_calls']:.0f} decode, {r['prefill_calls']:.0f} "
+              f"prefill calls), prefix hits {r['prefix_hits']}, peak "
+              f"{r['peak_mem_bytes'] / 2**30:.2f} GiB | teacher forcing vs "
+              f"Model.forward (K3): max logit shortfall "
+              f"{r['teacher_forced_shortfall']:.4f}, argmax agreement "
+              f"{r['argmax_agreement']:.3f}", flush=True)
+    res["bfloat16_blocks"] = blocks
+    bf, sh, f32 = res["bfloat16"], res[f"bfloat16 first {n} layers"], \
+        res["float32"]
+    sh_tol = BF16_SHALLOW_TOL * sh["forward"]["plain_max_abs"]
+    print(f"  {label} bfloat16 first {n} layers: limit on K3 vs plain logits "
+          f"and on the teacher-forced shortfall {BF16_SHALLOW_TOL:g} x "
+          f"max|logit| {sh['forward']['plain_max_abs']:.3f} = {sh_tol:.4f}",
+          flush=True)
+    if blocks["max_rel"] > BF16_BLOCK_TOL:
+        raise AssertionError(f"{label} bf16: SSD block on K3 vs plain "
+                             f"{blocks['max_rel']} > {BF16_BLOCK_TOL} at "
+                             f"layer {blocks['worst_layer']}")
+    if max(sh["forward"]["k3_vs_plain"],
+           sh["teacher_forced_shortfall"]) > sh_tol:
+        raise AssertionError(f"{label} bf16, {n} layers: K3 vs plain logits "
+                             f"{sh['forward']['k3_vs_plain']} or teacher-"
+                             f"forced shortfall "
+                             f"{sh['teacher_forced_shortfall']} > {sh_tol} "
+                             f"(two bf16 steps of the largest logit)")
+    # full depth, bf16: within twice the plain version's own rounding
+    # spread; float32: K3 and the served tokens held as tightly as phases 4
+    # and 7 hold bf16
+    if bf["forward"]["k3_vs_plain"] > \
+            2 * bf["forward"]["plain_vs_plain_chunk64"] + 0.05:
+        raise AssertionError(f"{label} bf16: K3 vs plain beyond twice the "
+                             f"rounding spread: {bf['forward']}")
+    if f32["forward"]["k3_vs_plain"] > 0.02:
+        raise AssertionError(f"{label} float32: K3 vs plain logits differ "
+                             f"by {f32['forward']['k3_vs_plain']} > 0.02")
+    if f32["teacher_forced_shortfall"] > 0.05:
+        raise AssertionError(f"{label} float32: teacher-forced shortfall "
+                             f"{f32['teacher_forced_shortfall']} > 0.05")
+    del m32, p32, shallow, p_sh
+    torch.cuda.empty_cache()
+    return res, launches
+
+
+def phase_mamba2_path(rng, quick: bool) -> dict:
+    print("phase 9: main path of the ssm family — mamba2-1.3b served, "
+          "SPA-pruned (L1) and served again; teacher forcing through K3",
+          flush=True)
+    cfg = get_config("mamba2-1.3b")
+    if quick:
+        cfg = cfg.replace(num_layers=4)
+    L = cfg.num_layers
+    model = build(cfg)
+    t0 = time.time()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    print(f"  model: {cfg.name} L={L} d={cfg.d_model} ssm heads "
+          f"{cfg.ssm_n_heads} x head_dim {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, conv {cfg.ssm_conv}, chunk {cfg.ssm_chunk}, "
+          f"V={cfg.vocab_size}, tied, {cfg.dtype}; {n_params(params)} "
+          f"parameters; init {time.time() - t0:.2f}s", flush=True)
+    scfg = ServeConfig(max_seqs=16, block_size=16, max_len=640,
+                       chunk_size=128)
+    n_req, gen = (6, 8) if quick else (16, 32)
+    res = {"model": cfg.name, "layers": L, "params": n_params(params),
+           "serve_config": dataclasses.asdict(scfg)}
+    t_path = time.time()
+    k3.reset_launches()                      # counts = this path's only
+    reset_launches()
+    expected = 0
+    for label in ("dense", "pruned"):
+        if label == "pruned":
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            pr = prune_model(model, params, 0.5, criterion="l1")
+            torch.cuda.synchronize()
+            prune_s = time.time() - t0
+            pc = pr.cfg
+            want = dict(h=pc.ssm_n_heads, p=pc.ssm_head_dim, n=pc.ssm_state)
+            if want != {k: K3_PRUNED[k] for k in want} or \
+                    pc.d_model != cfg.d_model:
+                raise AssertionError(f"unexpected pruned config {pc} (phase "
+                                     f"8 checked K3 at {K3_PRUNED})")
+            res["prune"] = {
+                "ratio": 0.5, "criterion": "l1", "wall_s": prune_s,
+                "seconds": pr.report["seconds"],
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+                "pruned_cfg": {"ssm_heads": pc.ssm_n_heads,
+                               "ssm_head_dim": pc.ssm_head_dim,
+                               "ssm_state": pc.ssm_state,
+                               "params": n_params(pr.params)},
+                "groups_pruned": pr.report["groups_pruned"]}
+            print(f"  pruned config: ssm heads {cfg.ssm_n_heads}->"
+                  f"{pc.ssm_n_heads}, head_dim {cfg.ssm_head_dim}->"
+                  f"{pc.ssm_head_dim}, state {cfg.ssm_state}->"
+                  f"{pc.ssm_state}, d_model {pc.d_model} kept; params "
+                  f"{res['params']}->{res['prune']['pruned_cfg']['params']}"
+                  f" | prune_model "
+                  f"{prune_s:.2f}s: " + " | ".join(
+                      f"{k} {v:.3f}s" for k, v in
+                      pr.report["seconds"].items())
+                  + f" | peak memory "
+                  f"{res['prune']['peak_mem_bytes'] / 2**30:.2f} GiB",
+                  flush=True)
+            model, params = build(pc), pr.params
+            del pr
+        reqs = make_requests(rng, cfg.vocab_size, n_req, gen, 128, 512, 256)
+        res[label], n = check_mamba2(label, model, params, reqs, scfg)
+        expected += n
+    torch.cuda.synchronize()
+    launches = k3.launch_count()
+    res["wall_s"] = time.time() - t_path
+    res["k3_launches"] = launches
+    res["k1_launches"] = launch_counts()["total"]
+    if launches != expected or res["k1_launches"]:
+        raise AssertionError(f"K3 launches {launches} != {expected} (one per "
+                             f"layer of every forward on the card, one per "
+                             f"block checked), or K1 launched "
+                             f"({res['k1_launches']}) by an attention-free "
+                             f"model")
+    print(f"  mamba2 path {res['wall_s']:.2f}s wall; K3 launches {launches} "
+          f"= one per layer of every forward and per block checked",
+          flush=True)
+    del model, params
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="cut phase 4 to 4 layers and a few requests")
+                    help="cut phases 4, 7 and 9 to 4 layers and a few "
+                         "requests")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode and one prefill step with "
                          "torch.profiler: device busy share, top kernels")
@@ -1126,12 +1595,14 @@ def main() -> int:
     print("phase 2: build (one nvcc per source, all started together)",
           flush=True)
     t0 = time.time()
-    sources = {"paged_attention": K1_SOURCE, "obspa_update": K4_SOURCE}
+    sources = {"paged_attention": K1_SOURCE, "obspa_update": K4_SOURCE,
+               "ssd_scan": K3_SOURCE}
     with ThreadPoolExecutor(len(sources)) as ex:
         for f in [ex.submit(_build.build, n) for n in sources]:
             f.result()
     ensure_built()
     k4.ensure_built()
+    k3.ensure_built()
     print(f"  built {len(sources)} libraries in {time.time() - t0:.1f}s "
           f"(set-up)", flush=True)
     for name, src in sources.items():
@@ -1173,6 +1644,13 @@ def main() -> int:
     k4_entry["launches"] = prune_res["k4_launches"]
     k4_entry["max_rel_err_vs_oracle"] = k4_rel
     kernels.append(k4_entry)
+    k3_rel = phase_k3_checks()
+    print("phase 8b: K3 time at the full-width forward's shape", flush=True)
+    k3_entry = time_k3()
+    mamba_res = phase_mamba2_path(rng, args.quick)
+    k3_entry["launches"] = mamba_res["k3_launches"]
+    k3_entry["max_rel_err"] = k3_rel
+    kernels.append(k3_entry)
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was never launched by its "
@@ -1181,6 +1659,7 @@ def main() -> int:
     print(json.dumps({"main_path": main_res}))
     print(json.dumps({"device_code_ms": dev_res}))
     print(json.dumps({"prune_path": prune_res, "k4_sweep": k4_sweep}))
+    print(json.dumps({"mamba2_path": mamba_res}))
     print(f"total {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -130,8 +130,10 @@ class ArchConfig:
             if self.qk_norm:
                 per_layer += 2 * hd
         if self.family == "ssm" or self.hybrid:
-            di, ns = self.d_inner, self.ssm_state
-            nh = self.ssm_n_heads
+            # the SSD heads' width, which pruning narrows (the reference
+            # counts expand * d_model, which a pruned config no longer has)
+            nh, ns = self.ssm_n_heads, self.ssm_state
+            di = nh * self.ssm_head_dim
             # in_proj produces [x, z, B, C, dt]; out_proj back to d
             per_layer += d * (2 * di + 2 * ns + nh) + di * d
             per_layer += self.ssm_conv * (di + 2 * ns)      # conv1d

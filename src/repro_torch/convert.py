@@ -4,7 +4,9 @@ The caller hands over the JAX parameter pytree **as numpy arrays**
 (``jax.tree.map(np.asarray, params)``) and the reference ``ArchConfig``
 as a dict (``dataclasses.asdict``); this module itself imports no JAX.
 Key paths, the stacked ``(L, ...)`` layer layout, the 3-D head layouts
-and the dtypes are kept.
+and the dtypes are kept — for the SSM leaves too: ``w_x``/``w_z``
+``(L, d, nh, hp)``, ``w_out`` ``(L, nh, hp, d)``, and ``A_log``, ``D``,
+``dt_bias`` in f32 whatever the model dtype.
 """
 from __future__ import annotations
 

@@ -25,7 +25,6 @@ for the CNN slice (ROADMAP.md Queue 1 item 14).
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -34,10 +33,10 @@ from repro_torch.core.graph import (CompGraph, OpNode, tree_map_paths,
                                     tree_paths)
 from repro_torch.core.groups import Group, build_groups
 from repro_torch.core.importance import leaf_scores, unit_scores
-from repro_torch.core.pruner import (PruneResult, apply_pruning,
-                                     delete_positions, infer_config,
-                                     prunable, restack, select_units,
-                                     trace_model)
+from repro_torch.core.pruner import (PhaseClock, PruneResult,
+                                     apply_pruning, delete_positions,
+                                     infer_config, prunable, restack,
+                                     select_units, trace_model)
 from repro_torch.kernels.obspa_update import obspa_sweep, obspa_sweep_batched
 from repro_torch.kernels.obspa_update.ops import full_f32_matmul
 from repro_torch.models import transformer as tf
@@ -295,23 +294,14 @@ def reconstruct(ap, groups: list[Group], pruned: dict[str, list[int]],
 # Top level
 # ---------------------------------------------------------------------------
 
-class _Clock:
-    """Seconds per phase, the device synchronised at each lap."""
-
-    def __init__(self, device: torch.device):
-        self.device = device
-        self.seconds: dict[str, float] = {}
-        self._t = self._now()
-
-    def _now(self) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        now = self._now()
-        self.seconds[name] = now - self._t
-        self._t = now
+def require_obspa_family(cfg) -> None:
+    """OBSPA is ported for the dense family; its SSM consumers (the SSD
+    block's projections) wait for their ROADMAP.md item."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: OBSPA for the {cfg.family!r} family is not ported "
+            f"yet — ROADMAP.md Queue 1 item 15 (OBSPA for SSM consumers); "
+            f"prune it by magnitude (prune_model)")
 
 
 def obspa_prune(model, params, ratio: float, calib_batches: list,
@@ -322,7 +312,8 @@ def obspa_prune(model, params, ratio: float, calib_batches: list,
     holds the time of each phase (trace, group, hessians, inverse, score,
     sweep, slice)."""
     cfg = model.cfg
-    clock = _Clock(tree_paths(params)[0][1].device)
+    require_obspa_family(cfg)
+    clock = PhaseClock(tree_paths(params)[0][1].device)
     # trace at the calibration batch's shapes: the graph interpreter replays
     # the trace on the calibration data, and the trace is shape-specialized
     graph, ap = trace_model(model, params, batch=calib_batches[0])
@@ -385,6 +376,7 @@ def layer_output_errors(model, params, result: PruneResult,
     columns) and for W' = W with the same columns simply cut.  X are the
     dense model's activations, which is what OBSPA's Hessian sees.
     Returns {"path@op": (obspa error, plain-slicing error)}."""
+    require_obspa_family(model.cfg)
     graph, ap = trace_model(model, params, batch=calib_batches[0])
     consumers = find_consumers(graph, result.groups)
     H, count = hessian_sums(graph, ap, calib_batches, consumers)

@@ -14,7 +14,12 @@ contract and free axes; elementwise ops broadcast from the right as
 every axis (the reference sees max, sub, exp, sum, div); ``reshape`` uses the
 same segment map with the conservative outer-factor cover (the GQA "prune
 the whole KV group" closure); ``chunk``/``cat`` carry offsets; ``index`` is
-the embedding gather.
+the embedding gather.  For the SSM block: ``pad`` shifts positions by the
+low padding of its axis, ``cumsum`` keeps them (the reference's scan rule),
+and ``conv1d`` couples channels as ``conv_general_dilated`` does, in
+PyTorch's layout (input ``(N, C_in, T)``, weight ``(C_out, C_in/groups,
+K)``, output ``(N, C_out, T)``; the depthwise conv of the SSM block has
+``groups = C_in``).
 """
 from __future__ import annotations
 
@@ -79,7 +84,7 @@ _ELEMENTWISE = (
     "silu", "gelu", "relu", "where", "clamp", "clamp_min", "clamp_max",
     "masked_fill", "to", "_to_copy", "type_as", "clone", "contiguous",
     "alias", "detach", "lift_fresh_copy", "softmax", "_softmax",
-    "log_softmax", "_log_softmax",
+    "log_softmax", "_log_softmax", "softplus",
 )
 
 
@@ -321,6 +326,76 @@ def _select(op, role, idx, axis, pos):
             return []
         return [(y, axis - (1 if axis > dim else 0), pos)]
     return [(x, axis + (1 if axis >= dim else 0), pos)]
+
+
+@rule("pad", "constant_pad_nd")
+def _pad(op, role, idx, axis, pos):
+    """``pad(x, pad)``: ``pad`` holds (low, high) pairs from the last axis
+    backwards; a position moves by its axis's low padding and drops out
+    where the padding cut it off."""
+    x, y = op.invars[0], op.outvars[0]
+    widths = _arg(op, 1, "pad")
+    k = len(x.shape) - 1 - axis
+    lo = widths[2 * k] if 2 * k < len(widths) else 0
+    hi = widths[2 * k + 1] if 2 * k + 1 < len(widths) else 0
+    if (lo or hi) and _arg(op, 2, "mode", "constant") != "constant":
+        raise GraphError(f"{op.prim} mode {_arg(op, 2, 'mode')!r} on a "
+                         f"padded axis is not supported")
+    node, shift = (y, lo) if role == "in" else (x, -lo)
+    sub = frozenset(p + shift for p in pos
+                    if 0 <= p + shift < node.shape[axis])
+    return [(node, axis, sub)] if sub else []
+
+
+@rule("cumsum")
+def _cumulative(op, role, idx, axis, pos):
+    """Positions map to themselves on every axis (the reference's rule for
+    its scan primitives)."""
+    x, y = op.invars[0], op.outvars[0]
+    return [(y if role == "in" else x, axis, pos)]
+
+
+@rule("conv1d")
+def _conv(op, role, idx, axis, pos):
+    """``conv_general_dilated``'s rule in PyTorch's layout: batch axes
+    couple input and output; with ``groups == 1`` input channels couple the
+    weight's input axis and output channels the weight's output axis; with
+    ``groups > 1`` a channel carries its whole group along.  The time axis
+    mixes positions and couples nothing."""
+    if len(op.invars) > 2:
+        raise GraphError("conv1d with a bias is not supported")
+    fgc = _arg(op, 6, "groups", 1)
+    lhs, rhs, y = op.invars[0], op.invars[1], op.outvars[0]
+    icg, ocg = lhs.shape[1] // fgc, rhs.shape[0] // fgc
+
+    def from_out(pos):                 # output channels -> the rest
+        out = [(rhs, 0, pos), (y, 1, pos)]
+        if fgc > 1:
+            groups = {p // ocg for p in pos}
+            out.append((lhs, 1, frozenset(
+                q for g in groups for q in range(g * icg, (g + 1) * icg))))
+        return out
+
+    if role == "in" and idx == 0:
+        if axis == 0:
+            return [(y, 0, pos)]
+        if axis != 1:
+            return []
+        if fgc == 1:
+            return [(rhs, 1, pos)]
+        groups = {p // icg for p in pos}
+        out = from_out(frozenset(
+            q for g in groups for q in range(g * ocg, (g + 1) * ocg)))
+        if icg > 1:
+            out.append((rhs, 1, frozenset(p % icg for p in pos)))
+        return out
+    if role == "in":
+        if axis == 0:
+            return from_out(pos)
+        return [(lhs, 1, pos)] if axis == 1 and fgc == 1 else []
+    if axis == 0:
+        return [(lhs, 0, pos)]
+    return from_out(pos) if axis == 1 else []
 
 
 # ---------------------------------------------------------------------------

@@ -9,13 +9,14 @@ goes (layers stay uniform, which the stacked layer layout needs).  The
 reference's ``global`` mode serves the CNN family and waits for its slice.
 ``align_units`` keeps its reference meaning and default (1: no rounding).
 
-The dense family is ported; the CNN, MoE and SSM branches raise
+The dense and ssm families are ported; the CNN and MoE branches raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Any
 
 import numpy as np
@@ -38,13 +39,35 @@ class PruneResult:
     pruned_units: dict[str, list[int]]
 
 
+class PhaseClock:
+    """Seconds per phase, the device synchronised at each lap."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.seconds: dict[str, float] = {}
+        self._t = self._now()
+
+    def _now(self) -> float:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = self._now()
+        self.seconds[name] = now - self._t
+        self._t = now
+
+
 # ---------------------------------------------------------------------------
 # Analysis
 # ---------------------------------------------------------------------------
 
 def analysis_seq(cfg: ArchConfig) -> int:
-    """Tokens of the analysis trace: 8, or more to reach a sliding window."""
+    """Tokens of the analysis trace: 8, or more to fill one SSM chunk or to
+    reach a sliding window."""
     s = 8
+    if cfg.ssm_state:
+        s = max(s, cfg.ssm_chunk)
     if cfg.sliding_window:
         s = max(s, min(cfg.sliding_window, 32))
     return s
@@ -52,22 +75,34 @@ def analysis_seq(cfg: ArchConfig) -> int:
 
 def trace_model(model, params, batch=None) -> tuple[CompGraph, Any]:
     """Trace the model's unrolled forward over its layers as a list.
-    Returns (graph, analysis-form params)."""
+    Returns (graph, analysis-form params).
+
+    The trace runs the plain versions (``use_kernels=False``), as the
+    reference traces with ``use_pallas=False``: it runs on fake tensors,
+    which a kernel launched through ``ctypes`` cannot take."""
     cfg = model.cfg
-    tf.require_dense(cfg)
+    tf.require_ported(cfg)
     if batch is None:
         dev = tree_paths(params)[0][1].device
         batch = model.dummy_batch(1, analysis_seq(cfg), device=dev)
+    plain = type(model)(cfg.replace(use_kernels=False))
     ap = tf.unstack_layers(params, cfg.num_layers)
-    g = trace_graph(lambda p, b: model.forward(p, b), ap, batch)
+    g = trace_graph(lambda p, b: plain.forward(p, b), ap, batch)
     return g, ap
 
 
-def analyze(model, params) -> tuple[CompGraph, list[Group], Any]:
-    """Trace + group.  Returns (graph, groups, analysis-form params).  The
-    reference's MoE hints (``merge_by_hints``) wait for the MoE slice."""
+def analyze(model, params, clock: PhaseClock | None = None
+            ) -> tuple[CompGraph, list[Group], Any]:
+    """Trace + group.  Returns (graph, groups, analysis-form params); a
+    ``clock`` gets a lap for each of the two.  The reference's MoE hints
+    (``merge_by_hints``) wait for the MoE slice."""
     g, ap = trace_model(model, params)
-    return g, build_groups(g), ap
+    if clock is not None:
+        clock.lap("trace")
+    groups = build_groups(g)
+    if clock is not None:
+        clock.lap("group")
+    return g, groups, ap
 
 
 def prunable(groups: list[Group]) -> list[Group]:
@@ -152,7 +187,7 @@ def apply_pruning(analysis_params, dele: dict[tuple[str, int], set[int]]):
 
 def infer_config(cfg: ArchConfig, analysis_params) -> ArchConfig:
     """Read the pruned dims back into a new ArchConfig."""
-    tf.require_dense(cfg)
+    tf.require_ported(cfg)
     layer0 = analysis_params["layers"][0]
     kw: dict[str, Any] = {"name": cfg.name + "-pruned"}
     if "attn" in layer0:
@@ -162,11 +197,15 @@ def infer_config(cfg: ArchConfig, analysis_params) -> ArchConfig:
         kw["v_head_dim"] = int(layer0["attn"]["wv"].shape[2])
     if "mlp" in layer0:
         kw["d_ff"] = int(layer0["mlp"]["w_down"].shape[0])
+    if "ssm" in layer0:
+        kw["ssm_heads_override"] = int(layer0["ssm"]["w_x"].shape[1])
+        kw["ssm_head_dim"] = int(layer0["ssm"]["w_x"].shape[2])
+        kw["ssm_state"] = int(layer0["ssm"]["w_B"].shape[1])
     return cfg.replace(**kw)
 
 
 def restack(cfg: ArchConfig, analysis_params):
-    tf.require_dense(cfg)
+    tf.require_ported(cfg)
     return tf.stack_layers(analysis_params)
 
 
@@ -181,22 +220,27 @@ def prune_model(model, params, ratio: float, criterion: str = "l1",
 
     ``align_units`` rounds kept unit counts to a multiple (1: none);
     ``mesh_divisor`` keeps previously divisible axes divisible by a
-    tensor-parallel degree."""
+    tensor-parallel degree.  ``report["seconds"]`` holds the time of each
+    phase (trace, group, score, slice)."""
     cfg = model.cfg
-    graph, groups, ap = analyze(model, params)
+    clock = PhaseClock(tree_paths(params)[0][1].device)
+    _, groups, ap = analyze(model, params, clock)
     targets = prunable(groups)
     scores_tree = leaf_scores(ap, criterion, seed=seed)
     scores = unit_scores(targets, scores_tree)
     pruned = select_units(targets, scores, ratio, align_units=align_units,
                           mesh_divisor=mesh_divisor)
+    clock.lap("score")
     dele = delete_positions(targets, pruned)
     new_ap = apply_pruning(ap, dele)
     new_cfg = infer_config(cfg, new_ap)
     new_params = restack(new_cfg, new_ap)
+    clock.lap("slice")
 
     report = {
         "criterion": criterion, "ratio": ratio, "mode": "per_group",
         "groups_total": len(groups), "groups_pruned": len(targets),
         "units_pruned": {k: len(v) for k, v in pruned.items() if v},
+        "seconds": clock.seconds,
     }
     return PruneResult(new_params, new_cfg, report, targets, pruned)

@@ -6,6 +6,9 @@
       [--reduced] [--no-prefix-caching] [--temperature 0.8] \
       [--cache-dtype int8] [--prune-ratio 0.5 [--obspa]] [--device cpu]
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
+      --reduced --prune-ratio 0.5 --device cpu
+
 Runs on the CUDA device; ``--device cpu`` asks for the CPU explicitly (the
 paged-attention kernel then gives way to its plain PyTorch version).  The
 model is random-initialised from ``--seed``.
@@ -20,7 +23,10 @@ prompt prefix alias full KV blocks via refcounted prefix caching unless
 magnitude per group (``core.pruner.prune_model``), or with ``--obspa`` by
 OBSPA with data-free calibration (4 batches of 4 x ``--prompt-len`` uniform
 tokens, the reference CLI's calibration), whose sweeps run the K4 kernel on
-the card.
+the card.  ``--arch mamba2-1.3b`` serves the ssm family (no prefix
+caching: its recurrent state is per slot) and prunes it by magnitude;
+``--obspa`` on it raises ``NotImplementedError`` (ROADMAP.md Queue 1 item
+15).
 
 ``generate`` (sequential, token-by-token over a contiguous cache) is kept as
 the correctness oracle the engine is tested against.
@@ -131,9 +137,13 @@ def main(argv: list[str] | None = None) -> None:
             from repro_torch.core.pruner import prune_model
             pr = prune_model(model, params, args.prune_ratio)
         model, params = build(pr.cfg), pr.params
-        print(f"serving pruned model: {pr.cfg.name} (heads {pr.cfg.n_heads},"
-              f" kv heads {pr.cfg.n_kv_heads}, v_head_dim "
-              f"{pr.cfg.v_head_dim_}, d_ff {pr.cfg.d_ff})")
+        pc = pr.cfg
+        dims = (f"ssm heads {pc.ssm_n_heads}, ssm head_dim "
+                f"{pc.ssm_head_dim}, state {pc.ssm_state}"
+                if pc.family == "ssm" else
+                f"heads {pc.n_heads}, kv heads {pc.n_kv_heads}, v_head_dim "
+                f"{pc.v_head_dim_}, d_ff {pc.d_ff}")
+        print(f"serving pruned model: {pc.name} ({dims})")
 
     toks, lens = synthetic_prompts(cfg.vocab_size, args.requests,
                                    args.prompt_len, args.seed)

@@ -52,6 +52,8 @@ class Model:
 
     def paged_decode_step(self, params, cache, tokens, positions,
                           block_tables, active=None):
+        """``active`` (B,) bool marks the slots fed this step; the others
+        keep their recurrent state (ssm family)."""
         return tf.paged_decode_step(params, self.cfg, cache, tokens,
                                     positions, block_tables, active)
 
@@ -79,5 +81,5 @@ class Model:
 
 
 def build(cfg: ArchConfig) -> Model:
-    tf.require_dense(cfg)
+    tf.require_ported(cfg)
     return Model(cfg)

@@ -1,15 +1,17 @@
 """Transformer backbone of the port: the dense family (GQA attention +
-SwiGLU), as the reference's ``models/transformer.py`` runs it.
+SwiGLU) and the ssm family (Mamba-2: SSD blocks only, no attention and no
+separate FFN), as the reference's ``models/transformer.py`` runs them.
 
 Parameters are a nested dict of tensors with the reference's key paths;
 ``params["layers"]`` holds every per-layer leaf stacked on a leading
 ``(L, ...)`` axis, and a Python loop over that axis takes the place of
-``lax.scan``.  The other families (moe, vlm, hybrid, ssm, audio, cnn) raise
+``lax.scan``.  The other families (moe, vlm, hybrid, audio, cnn) raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 
-In-place updates: the contiguous cache and the paged pools are written in
-place by every decode / prefill / verify step (the reference donates those
-buffers to its jitted steps); the returned cache is the object passed in.
+In-place updates: the contiguous cache, the paged pools and the per-slot
+SSM ``conv``/``state`` tensors are written in place by every decode /
+prefill / verify step (the reference donates those buffers to its jitted
+steps); the returned cache is the object passed in.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention import is_quantized, pool_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     cross_entropy, dense_init, dtype_of, embed_init, rms_norm, swiglu,
     swiglu_init)
@@ -30,12 +33,15 @@ _LATER = {
     "audio": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
     "cnn": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
     "hybrid": "Queue 1 item 13 (SSM and hybrid families)",
-    "ssm": "Queue 1 item 13 (SSM and hybrid families)",
 }
+PORTED = ("dense", "ssm")
 
 
-def require_dense(cfg: ArchConfig) -> None:
-    if cfg.family != "dense" or cfg.hybrid or cfg.n_experts or cfg.is_encoder:
+def require_ported(cfg: ArchConfig) -> None:
+    """Admit the ported families (dense, ssm); the others raise naming the
+    ROADMAP.md item that brings them."""
+    if cfg.family not in PORTED or cfg.hybrid or cfg.n_experts or \
+            cfg.is_encoder:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet — "
             f"ROADMAP.md {_LATER.get(cfg.family, 'Queue 1')}")
@@ -60,6 +66,9 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     dt = dtype_of(cfg.dtype)
     ones = lambda: torch.ones((cfg.d_model,), dtype=dt, device=gen.device)
     p: dict[str, Any] = {"ln1": ones()}
+    if cfg.family == "ssm":
+        p["ssm"] = ssm_mod.ssm_init(gen, cfg)
+        return p
     p["attn"] = attn.attn_init(gen, cfg)
     if cfg.d_ff:
         p["ln2"] = ones()
@@ -76,7 +85,7 @@ def _stack(trees: list[dict]) -> dict:
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """Random parameters drawn from ``gen`` on ``gen.device``."""
-    require_dense(cfg)
+    require_ported(cfg)
     dt = dtype_of(cfg.dtype)
     params: dict[str, Any] = {}
     params["tok_embed"] = embed_init(gen, (cfg.vocab_size, cfg.d_model), dt)
@@ -96,6 +105,8 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
 def layer_forward(lp: dict, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if cfg.family == "ssm":
+        return x + ssm_mod.ssm_block(lp["ssm"], cfg, h)
     x = x + attn.attention_block(lp["attn"], cfg, h, positions, "causal",
                                  window=cfg.sliding_window)
     if cfg.d_ff:
@@ -108,7 +119,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     """Hidden states (B, S, d) after the final norm.  ``params["layers"]``
     may be the stacked tree or a list of per-layer trees
     (``unstack_layers``)."""
-    require_dense(cfg)
+    require_ported(cfg)
     tokens = batch["tokens"]
     h = params["tok_embed"][tokens.long()]
     B, S, _ = h.shape
@@ -140,23 +151,35 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict
 # Decode over a contiguous cache (the sequential oracle's step)
 # ---------------------------------------------------------------------------
 
+def _ssm_state(cfg: ArchConfig, L: int, rows: int, device) -> dict:
+    """Per-row recurrent state of every layer: ``conv (L, rows, K-1, ch)``
+    in the model dtype and ``state (L, rows, h, p, n)`` f32, zeros."""
+    sc = ssm_mod.init_ssm_cache(cfg, rows, dtype_of(cfg.dtype), device)
+    return {"conv": sc.conv[None].repeat(L, 1, 1, 1),
+            "state": sc.state[None].repeat(L, 1, 1, 1, 1)}
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
-    require_dense(cfg)
+    require_ported(cfg)
+    L = cfg.num_layers
+    if cfg.family == "ssm":
+        return _ssm_state(cfg, L, batch, device)
     kv = attn.init_layer_cache(cfg, batch, max_len, dtype_of(cfg.dtype),
                                device)
-    L = cfg.num_layers
     return {"k": kv.k[None].repeat(L, 1, 1, 1, 1),
             "v": kv.v[None].repeat(L, 1, 1, 1, 1)}
 
 
 def _decode_layer(lp: dict, lc: dict, h: torch.Tensor, cfg: ArchConfig,
-                  attn_fn) -> torch.Tensor:
+                  attn_fn, ssm_fn) -> torch.Tensor:
     """One incremental layer, shared by the contiguous decode, paged decode
     and chunked paged-prefill paths.  ``attn_fn(attn_params, hn, lc) ->
-    a_out`` encapsulates everything the cache layouts / step widths
-    disagree on (and writes ``lc`` in place); the residual/FFN scaffolding
-    stays single-source."""
+    a_out`` and ``ssm_fn(ssm_params, hn, lc) -> delta`` encapsulate
+    everything the cache layouts / step widths disagree on (and write
+    ``lc`` in place); the residual/FFN scaffolding stays single-source."""
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+    if cfg.family == "ssm":
+        return h + ssm_fn(lp["ssm"], hn, lc)
     h = h + attn_fn(lp["attn"], hn, lc)
     if cfg.d_ff:
         h2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
@@ -165,15 +188,24 @@ def _decode_layer(lp: dict, lc: dict, h: torch.Tensor, cfg: ArchConfig,
 
 
 def _run_decode_layers(params: dict, cfg: ArchConfig, cache: dict,
-                       x: torch.Tensor, attn_fn) -> torch.Tensor:
+                       x: torch.Tensor, attn_fn, ssm_fn) -> torch.Tensor:
     """Layer loop + final norm shared by the incremental paths.  Each
     layer's cache slice is a view into ``cache``, so its in-place writes
     land in the stacked tensors.  Returns hidden (B, S, d)."""
     h = x
     for i in range(cfg.num_layers):
         h = _decode_layer(_layer(params["layers"], i), _layer(cache, i), h,
-                          cfg, attn_fn)
+                          cfg, attn_fn, ssm_fn)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
+
+
+def _keep_rows(rows: torch.Tensor | None, new, old: torch.Tensor
+               ) -> torch.Tensor:
+    """``new`` (a tensor like ``old``, or a scalar) on the rows marked True,
+    ``old`` elsewhere; all of ``new`` when ``rows`` is None."""
+    if rows is None:
+        return new
+    return torch.where(rows.reshape((-1,) + (1,) * (old.ndim - 1)), new, old)
 
 
 def decode_step(params: dict, cfg: ArchConfig, cache: dict,
@@ -182,7 +214,7 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
 
     Returns (logits (B, V), the cache, updated in place).
     """
-    require_dense(cfg)
+    require_ported(cfg)
     x = params["tok_embed"][tokens.long()[:, None]]             # (B,1,d)
     pos = int(pos)
 
@@ -191,7 +223,14 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
             ap, cfg, hn, pos, attn.KVCache(lc["k"], lc["v"]), "causal")
         return a_out
 
-    h = _run_decode_layers(params, cfg, cache, x, attn_fn)
+    def ssm_fn(sp, hn, lc):
+        out, new = ssm_mod.ssm_decode(
+            sp, cfg, hn, ssm_mod.SSMCache(lc["conv"], lc["state"]))
+        lc["conv"].copy_(new.conv)
+        lc["state"].copy_(new.state)
+        return out
+
+    h = _run_decode_layers(params, cfg, cache, x, attn_fn, ssm_fn)
     return logits_from_hidden(params, cfg, h)[:, 0], cache
 
 
@@ -207,7 +246,7 @@ _KV_POOL_KEYS = ("k", "v", "k_scale", "v_scale")
 def init_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
                      max_seqs: int, dtype: str | None = None,
                      device=None) -> dict:
-    """Block-pool KV cache.
+    """Block-pool KV cache + per-slot SSM state.
 
     KV lives in a shared pool of ``num_blocks`` blocks of ``block_size``
     tokens (block 0 is the reserved null block that idle slots write into).
@@ -218,11 +257,14 @@ def init_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
     consumed by the kernel's fused dequant.  Pools start as zeros (never
     uninitialised memory): masked keys multiply ``p = 0`` by whatever a
     block holds, so every cell must be finite from the start.
-    ``max_seqs`` sizes per-slot recurrent state in the families that have
-    it; the dense family has none.
+    The ssm family holds no KV pools: its SSM/conv state is O(1) per
+    sequence, a plain per-slot tensor ``conv (L, max_seqs, K-1, ch)`` in
+    the model dtype and ``state (L, max_seqs, h, p, n)`` f32 (carried, not
+    re-derived, so ``dtype`` does not narrow it).
     """
-    require_dense(cfg)
-    del max_seqs
+    require_ported(cfg)
+    if cfg.family == "ssm":
+        return _ssm_state(cfg, cfg.num_layers, max_seqs, device)
     quant = is_quantized(dtype)
     dt = pool_dtype(dtype) if quant else dtype_of(dtype or cfg.dtype)
     L, KH = cfg.num_layers, cfg.n_kv_heads
@@ -248,22 +290,34 @@ def paged_decode_step(params: dict, cfg: ArchConfig, cache: dict,
 
     tokens (B,) int32; positions (B,) int32 per-slot write index (slots may
     be at different depths); block_tables (B, NB) int32; active (B,) bool
-    marks the slots actually fed this step (it gates recurrent state in the
-    families that have it; the dense family ignores it).  Inactive slots'
-    K/V writes are harmless because the engine hands them a zeroed table
-    row (everything lands in the null block).  Returns (logits (B, V), the
-    cache, written in place).
+    marks the slots actually fed this step (None = all).  Inactive slots —
+    idle, or mid chunked-prefill and advancing through
+    ``paged_prefill_step`` instead — keep their recurrent SSM/conv state
+    untouched; their K/V writes are already harmless because the engine
+    hands them a zeroed table row (everything lands in the null block).
+    Returns (logits (B, V), the cache, written in place).
     """
-    require_dense(cfg)
-    del active
+    require_ported(cfg)
     x = params["tok_embed"][tokens.long()[:, None]]             # (B,1,d)
+    # slots at position 0 start a (re-)prefill: their recurrent state is
+    # from a previous occupant (or idle-step garbage) and is zeroed before
+    # use — KV needs no such reset, reads are length-masked
+    fresh = positions == 0
 
     def attn_fn(ap, hn, lc):
         a_out, _ = attn.attention_paged_decode(
             ap, cfg, hn, positions, lc, block_tables, window=0)
         return a_out
 
-    h = _run_decode_layers(params, cfg, cache, x, attn_fn)
+    def ssm_fn(sp, hn, lc):
+        sc = ssm_mod.SSMCache(_keep_rows(fresh, 0.0, lc["conv"]),
+                              _keep_rows(fresh, 0.0, lc["state"]))
+        out, new = ssm_mod.ssm_decode(sp, cfg, hn, sc)
+        lc["conv"].copy_(_keep_rows(active, new.conv, lc["conv"]))
+        lc["state"].copy_(_keep_rows(active, new.state, lc["state"]))
+        return out
+
+    h = _run_decode_layers(params, cfg, cache, x, attn_fn, ssm_fn)
     return logits_from_hidden(params, cfg, h)[:, 0], cache
 
 
@@ -274,18 +328,32 @@ def _paged_chunk_forward(params: dict, cfg: ArchConfig, cache: dict,
     """Shared core of chunked prefill and speculative verify: push a
     fixed-width chunk of tokens per sequence through the layer stack,
     scattering K/V of the valid tokens into the paged pool (padding lands
-    in the null block).  ``slots`` addresses per-slot recurrent state in
-    the families that have it.  Returns hidden (B, C, d)."""
-    require_dense(cfg)
-    del slots
+    in the null block) and advancing the recurrent SSM state of rows
+    ``slots`` through the valid prefix.  Returns hidden (B, C, d)."""
+    require_ported(cfg)
     x = params["tok_embed"][tokens.long()]                      # (B,C,d)
+    fresh = positions[:, 0] == 0      # first chunk: reset recurrent state
+    # rows riding the fixed-shape chunk batch with no tokens this step
+    # (valid == 0: idle or decode-phase slots) keep their recurrent state
+    fed = valid > 0
 
     def attn_fn(ap, hn, lc):
         a_out, _ = attn.attention_paged_prefill(
             ap, cfg, hn, positions, lc, block_tables, valid, window=0)
         return a_out
 
-    return _run_decode_layers(params, cfg, cache, x, attn_fn)
+    rows = slots.long()
+
+    def ssm_fn(sp, hn, lc):
+        conv0, state0 = lc["conv"][rows], lc["state"][rows]
+        sc = ssm_mod.SSMCache(_keep_rows(fresh, 0.0, conv0),
+                              _keep_rows(fresh, 0.0, state0))
+        out, new = ssm_mod.ssm_prefill(sp, cfg, hn, sc, valid)
+        lc["conv"][rows] = _keep_rows(fed, new.conv, conv0)
+        lc["state"][rows] = _keep_rows(fed, new.state, state0)
+        return out
+
+    return _run_decode_layers(params, cfg, cache, x, attn_fn, ssm_fn)
 
 
 def paged_prefill_step(params: dict, cfg: ArchConfig, cache: dict,

@@ -38,6 +38,13 @@ for ``device="cpu"``; without CUDA and without that request it raises.  The
 pools are updated in place by the model steps (where the reference donates
 buffers to its jitted steps).
 
+Recurrent families (ssm): every paged step carries the ``active`` mask, so
+slots that are idle or mid-prefill keep their SSM/conv state, and a slot
+whose position is 0 starts from zero state (slot reuse).  Prefix caching is
+gated off for them: recurrent state is per slot and cannot be rebuilt from
+aliased KV blocks; there is no speculative path (no rewind of recurrent
+state), and ``can_handoff_blocks`` is False.
+
 Not in this module yet (later slices of the port): speculative decoding,
 the double-buffered ``step_async``, fault injection / audits / degradation,
 snapshots, cluster hand-off, meshes and telemetry.
@@ -138,7 +145,24 @@ class Engine:
             max_seqs=self.cfg.max_seqs,
             dtype=self.cfg.cache_dtype or None,
             device=self.device)
+        # prefix caching needs the cached blocks to fully determine the
+        # model state they stand for; recurrent SSM/conv state is per-slot
+        # and not reconstructable from aliased KV blocks
+        self._prefix_ok = (self.cfg.prefix_caching
+                           and not self._recurrent)
         self.reset()
+
+    @property
+    def _recurrent(self) -> bool:
+        return self.model.cfg.family == "ssm" or self.model.cfg.hybrid
+
+    @property
+    def can_handoff_blocks(self) -> bool:
+        """Whether a running sequence could move to another engine as its
+        KV blocks: not for recurrent families, whose SSM/conv state is
+        per-slot, not per-block (the reference's gate; the port has no
+        hand-off yet)."""
+        return not self._recurrent
 
     def reset(self) -> None:
         """Clear all request/allocator state; keep params and pools (stale
@@ -148,7 +172,7 @@ class Engine:
             num_blocks=self.cfg.pool_blocks(),
             block_size=self.cfg.block_size,
             max_blocks_per_seq=self.cfg.blocks_per_seq,
-            prefix_caching=self.cfg.prefix_caching)
+            prefix_caching=self._prefix_ok)
         self.scheduler = FCFSScheduler(self.cache_host)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(self.cfg.seed)
@@ -329,9 +353,13 @@ class Engine:
             active[s.slot] = True
         # inactive slots write into the null block, not their tables
         tables = np.where(active[:, None], self.cache_host.tables, 0)
-        tok, pos, tab = self._upload(tokens, positions, tables)
+        # only the recurrent state reads the mask: the dense step is sent
+        # none, so it uploads and casts nothing more
+        recur = (active,) if self._recurrent else ()
+        tok, pos, tab, *act = self._upload(tokens, positions, tables, *recur)
         logits, self.cache = self.model.paged_decode_step(
-            self.params, self.cache, tok, pos, tab)
+            self.params, self.cache, tok, pos, tab,
+            act[0].bool() if act else None)
         self._c["decode_calls"] += 1
         fetch["dec"] = self._sample(logits, temps)
 

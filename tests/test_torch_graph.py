@@ -122,6 +122,28 @@ STRUCTURAL = {
         lambda p, x: (x @ p["w1"])[1] * p["s"],
         {"w1": (4, 6), "s": (6,)}, ("s", 0, {5}),
         {("w1", 1): [5], ("s", 0): [5]}),
+    # the SSM block's ops: pad shifts by the low padding, cumsum keeps
+    # positions, softplus is elementwise, a depthwise conv1d couples a
+    # channel with its filter, a dense one the input channel with the
+    # weight's input axis only
+    "pad-shift": (
+        lambda p, x: F.pad(x @ p["w1"], (2, 0)) @ p["w2"],
+        {"w1": (4, 6), "w2": (8, 5)}, ("w1", 1, {3}),
+        {("w1", 1): [3], ("w2", 0): [5]}),
+    "cumsum-softplus": (
+        lambda p, x: F.softplus((x @ p["w1"]).cumsum(dim=-1)) @ p["w2"],
+        {"w1": (4, 6), "w2": (6, 5)}, ("w1", 1, {2}),
+        {("w1", 1): [2], ("w2", 0): [2]}),
+    "conv1d-depthwise": (
+        lambda p, x: F.conv1d((x @ p["w1"]).t()[None], p["cw"],
+                              groups=6).sum(dim=2) @ p["w2"],
+        {"w1": (4, 6), "cw": (6, 1, 2), "w2": (6, 5)}, ("w1", 1, {4}),
+        {("w1", 1): [4], ("cw", 0): [4], ("w2", 0): [4]}),
+    "conv1d-dense": (
+        lambda p, x: F.conv1d((x @ p["w1"]).t()[None], p["cw"]
+                              ).sum(dim=2) @ p["w2"],
+        {"w1": (4, 6), "cw": (5, 6, 2), "w2": (5, 3)}, ("w1", 1, {4}),
+        {("w1", 1): [4], ("cw", 1): [4]}),
 }
 
 

@@ -2,9 +2,10 @@
 
 Both packages analyse the same converted weights: group keys, kinds, unit
 counts, protection and every unit's parameter slices must be identical
-(reduced tinyllama, qwen3-1.7b with qk-norm, and tinyllama with two KV
+(reduced tinyllama, qwen3-1.7b with qk-norm, tinyllama with two KV
 heads, whose whole-KV-group cover reduced tinyllama's single KV head leaves
-untested).  ``prune_model`` (l1, l2) must prune the same units, infer the
+untested, and mamba2-1.3b, whose SSD block brings the pad, cumsum and
+depthwise-convolution rules).  ``prune_model`` (l1, l2) must prune the same units, infer the
 same config and give logits within 1e-5 of the JAX-pruned model (f32).
 The port-pruned model is then served by the engine and held token for token
 against the sequential ``generate`` oracle, and the CLI prunes on the CPU.
@@ -27,7 +28,7 @@ from repro_torch import convert
 from repro_torch.core.graph import tree_paths
 from repro_torch.core.importance import leaf_scores, unit_scores
 from repro_torch.core.pruner import (analyze, prunable, prune_model,
-                                     select_units)
+                                     select_units, trace_model)
 from repro_torch.launch.serve import generate
 from repro_torch.models import build as t_build
 from repro_torch.serve import Engine, ServeConfig
@@ -39,6 +40,7 @@ CONFIGS = {
     "tinyllama": ("tinyllama-1.1b", {}),
     "qwen3-qknorm": ("qwen3-1.7b", {}),
     "tinyllama-kv2": ("tinyllama-1.1b", {"n_kv_heads": 2}),
+    "mamba2": ("mamba2-1.3b", {}),
 }
 _MODELS: dict = {}
 
@@ -70,7 +72,8 @@ def test_groups_identical_to_jax(case):
     _, tgroups, _ = analyze(tm, tp)
     assert summary(tgroups) == summary(jgroups)
     kinds = {gr.kind for gr in prunable(tgroups)}
-    assert kinds == {"heads", "mlp"}
+    assert kinds == ({"ssm_heads", "ssm_state"} if tm.cfg.family == "ssm"
+                     else {"heads", "mlp"})
     if tm.cfg.n_kv_heads >= 2:
         # whole-KV-group cover: one unit = one KV head and its G query heads
         kv = [gr for gr in tgroups if gr.key == "layers.0.attn.wk:1"][0]
@@ -81,7 +84,7 @@ def test_groups_identical_to_jax(case):
 
 
 @pytest.mark.parametrize("criterion", ["l1", "l2"])
-@pytest.mark.parametrize("case", ["tinyllama", "tinyllama-kv2"])
+@pytest.mark.parametrize("case", ["tinyllama", "tinyllama-kv2", "mamba2"])
 def test_prune_model_matches_jax(case, criterion):
     jm, jp, tm, tp = models(case)
     jr = j_prune_model(jm, jp, 0.5, criterion=criterion)
@@ -189,3 +192,62 @@ def test_cli_prune_without_a_device_raises_here():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["--arch", "tinyllama-1.1b", "--reduced", "--prune-ratio",
                   "0.5", "--obspa"])
+
+
+def test_mamba2_groups_and_pruned_shapes():
+    """Per layer: SSM heads (8 units: w_x/w_z/w_dt axis 1, w_out axis 0,
+    A_log/D/dt_bias, 16 conv and 16 norm channels each), head_dim (16
+    units) and state (16 units: w_B and w_C together, one B and one C conv
+    channel each); at ratio 0.5 the config reads back 4 heads of head_dim 8
+    and state 8, and d_model (the residual) is kept."""
+    _, _, tm, tp = models("mamba2")
+    _, groups, _ = analyze(tm, tp)
+    got = {gr.key: (gr.kind, gr.n_units) for gr in prunable(groups)}
+    for i in range(tm.cfg.num_layers):
+        pre = f"layers.{i}.ssm."
+        assert got[pre + "A_log:0"] == ("ssm_heads", 8)
+        assert got[pre + "w_out:1"] == ("ssm_heads", 16)
+        assert got[pre + "w_B:1"] == ("ssm_state", 16)
+    assert len(got) == 3 * tm.cfg.num_layers
+    heads = [gr for gr in groups if gr.key == "layers.0.ssm.A_log:0"][0]
+    widths = {s.path.rsplit(".", 1)[1]: len(s.positions)
+              for s in heads.units[0].slices}
+    assert widths == {"A_log": 1, "D": 1, "dt_bias": 1, "w_dt": 1,
+                      "w_out": 1, "w_x": 1, "w_z": 1, "conv_w": 16,
+                      "norm": 16}
+    pr = prune_model(tm, tp, 0.5)
+    c = pr.cfg
+    assert (c.ssm_n_heads, c.ssm_head_dim, c.ssm_state, c.d_model) == \
+        (4, 8, 8, tm.cfg.d_model)
+    ssm = pr.params["layers"]["ssm"]
+    assert tuple(ssm["w_x"].shape) == (2, 64, 4, 8)
+    assert tuple(ssm["conv_w"].shape) == (2, 4, 4 * 8 + 2 * 8)
+    assert tuple(ssm["w_out"].shape) == (2, 4, 8, 64)
+    # the analytic count follows the pruned SSD width (nh * head_dim), not
+    # expand * d_model; it stays within 1 % of the tensors' own count
+    held = sum(t.numel() for _, t in tree_paths(pr.params))
+    assert abs(c.param_count() - held) < 0.01 * held
+    assert c.param_count() < 0.5 * tm.cfg.param_count()
+
+
+def test_trace_takes_the_plain_branch(monkeypatch):
+    """The analysis trace runs on fake tensors, which the K3 launch through
+    ctypes cannot take: ``trace_model`` traces ``use_kernels=False``.
+    Shown without a card by routing every tensor to the kernel branch and
+    making the kernel raise: the forward then fails, the trace does not."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import ssm as t_ssm
+
+    def no_kernel(*a, **k):
+        raise AssertionError("K3 reached")
+    monkeypatch.setattr(t_ssm, "_on_kernel", lambda cfg, x: cfg.use_kernels)
+    monkeypatch.setattr(ssd_ops, "ssd_scan", no_kernel)
+    _, _, tm, tp = models("mamba2")
+    assert tm.cfg.use_kernels
+    toks = torch.zeros((1, 16), dtype=torch.int32)
+    with pytest.raises(AssertionError, match="K3 reached"):
+        tm.forward(tp, {"tokens": toks})
+    g, _ = trace_model(tm, tp)
+    assert {"cumsum", "pad", "conv1d", "softplus"} <= \
+        {op.prim for op in g.ops}
+    assert prune_model(tm, tp, 0.5).cfg.ssm_n_heads == 4
