@@ -41,16 +41,37 @@ nothing of JAX or of the JAX package.  Phases:
     served by ``Engine`` (a third behind a shared prefix that must not be
     aliased), every served token checked by teacher forcing through
     ``Model.forward`` (K3); then SPA-pruned by magnitude (L1) at ratio 0.5
-    on the card and the same checks on the pruned model.
+    on the card and the same checks on the pruned model;
+10. the flash-attention kernel K2 against its plain PyTorch version (the
+    reference's six test shapes, the main path's 8 x 512 TinyLlama shape
+    and its pruned D 64 / DV 32 form, a length that is not a multiple of
+    the tile, a window, bidirectional, f32), and its time beside the plain
+    version, one ``scaled_dot_product_attention`` call and the card's
+    bound;
+11. train, prune any time, fine-tune at full width: ``tinyllama-1.1b``
+    trained from random weights by ``repro_torch.train.Trainer`` on the
+    "id" Markov task (8 x 512-token batches), then the paper's three
+    regimes — SPA-SNIP at init then trained, SPA-L1 after training then
+    fine-tuned, OBSPA after training with data-free calibration (K4) —
+    every model evaluated by a no-grad ``Model.loss`` on K2 and once on the
+    plain attention, held to the plain version's own rounding spread (the
+    mean per-token |CE bf16 - CE f32 twin|); RF/RP, step time, tokens/s
+    and peak memory of each; and a checkpoint-and-restart drill
+    (``run_with_restarts``) at the reduced config.
+
+Every full-sequence ``Model.forward`` / ``Model.loss`` of an attention model
+on the card runs K2 (teacher forcing in phases 4 and 7, every evaluation in
+phase 11); training and the gradient criteria differentiate the plain
+attention, as the reference trains with ``use_pallas=False``.
 
 The kernels are built in parallel (one ``nvcc`` per source).  Any failing
 phase raises, so the exit code is non-zero and no ``"ok"`` line
 is printed.  TF32 is off for matmuls and cuDNN throughout.
 
-``--quick`` cuts phases 4, 7 and 9 to 4 layers and a few requests (for a
-first look at a new kernel); ``--profile`` adds a ``torch.profiler`` trace of one decode
-and one prefill step (device busy share, top kernels).  The default is the
-full run without the trace.
+``--quick`` cuts phases 4, 7, 9 and 11 to 4 layers and a few requests or
+steps (for a first look at a new kernel); ``--profile`` adds a
+``torch.profiler`` trace of one decode and one prefill step (device busy
+share, top kernels).  The default is the full run without the trace.
 """
 from __future__ import annotations
 
@@ -59,8 +80,10 @@ import dataclasses
 import json
 import math
 import os
+import resource
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -76,7 +99,10 @@ from repro_torch.core.obspa import (  # noqa: E402
     layer_output_errors, obspa_prune)
 from repro_torch.core.pruner import prune_model  # noqa: E402
 from repro_torch.data.synthetic import batches  # noqa: E402
+from repro_torch.core.flops import rf_rp  # noqa: E402
+from repro_torch.core.graph import tree_paths  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as k2  # noqa: E402
 from repro_torch.kernels import obspa_update as k4  # noqa: E402
 from repro_torch.kernels import ssd_scan as k3  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
@@ -88,6 +114,9 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.models.ssm import ssd_reference, ssm_block  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
+from repro_torch.train.loop import (  # noqa: E402
+    Trainer, TrainerConfig, run_with_restarts)
+from repro_torch.train.optim import OptConfig  # noqa: E402
 
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates)
 HBM_BYTES_PER_S = 3.35e12
@@ -131,6 +160,8 @@ K3_REPLACES = "src/repro/kernels/ssd_scan/ssd_scan.py:71"
 # compute in f32 from the same (possibly bf16-valued) inputs, in another
 # order; a bf16 y adds one bf16 rounding
 K3_TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+K2_SOURCE = "src/repro_torch/kernels/csrc/flash_attention.cu"
+K2_REPLACES = "src/repro/kernels/flash_attention/flash_attention.py:69"
 
 DEV = "cuda"
 
@@ -636,6 +667,7 @@ def phase_main_path(rng, quick: bool, profile: bool = False) -> dict:
     # bf16 activations rounded at different places by the paged steps and
     # the full-sequence forward.
     tf_tol, plain_tol = 0.25, 0.25
+    k2.reset_launches()         # K2: every teacher-forcing forward below
     gaps = [teacher_forced_gap(model, params, out[r])
             for r in sorted(out)[:: max(n_req // 6, 1)]]
     tf_gap = max(g for g, _ in gaps)
@@ -660,6 +692,10 @@ def phase_main_path(rng, quick: bool, profile: bool = False) -> dict:
     if n8 != L * int(st8["decode_calls"] + st8["prefill_calls"]):
         raise AssertionError("int8 run: launch count mismatch")
     gap8 = max(teacher_forced_gap(model, params, out8[r])[0] for r in (0, 5))
+    k2_launches = k2.launch_count()
+    if k2_launches != L * (len(gaps) + 2):
+        raise AssertionError(f"K2 launches {k2_launches} != {L} layers x "
+                             f"{len(gaps) + 2} teacher-forcing forwards")
     print(f"  int8 pools: 8 requests x 16 tokens, {n8} launches, "
           f"teacher-forced shortfall {gap8:.4f} (tol 0.5: one more rounding "
           f"of every K/V row to 8 bits)", flush=True)
@@ -681,6 +717,7 @@ def phase_main_path(rng, quick: bool, profile: bool = False) -> dict:
         "host_syncs": stats["host_syncs"],
         "sampling_steps": sampling_steps[0],
         "k1_launches": launches, "peak_mem_bytes": peak,
+        "k2_launches_teacher_forcing": k2_launches,
         "teacher_forced_shortfall": tf_gap, "argmax_agreement": tf_match,
         "kernel_vs_plain_step_logits": plain_gap,
     }
@@ -1007,6 +1044,7 @@ def phase_prune_path(rng, quick: bool) -> dict:
     params = model.init(seed=0)
     calib = batches(cfg, "datafree", 4, 4, 512, seed=5)
     evalb = model.dummy_batch(4, 128, seed=9)
+    k2.reset_launches()        # K2: every full-sequence forward of phase 7
     with torch.no_grad():
         dense_logits = model.forward(params, evalb).float()
 
@@ -1093,6 +1131,10 @@ def phase_prune_path(rng, quick: bool) -> dict:
           f"{tf_match:.3f}", flush=True)
     if tf_gap > 0.25:
         raise AssertionError(f"pruned teacher-forced shortfall {tf_gap}")
+    k2_launches = k2.launch_count()
+    if k2_launches != L * (3 + len(gaps)):
+        raise AssertionError(f"K2 launches {k2_launches} != {L} layers x "
+                             f"{3 + len(gaps)} forwards")
     res = {
         "model": cfg.name, "layers": L, "ratio": 0.5,
         "calibration": "datafree 4 x 4 x 512, seed 5",
@@ -1101,7 +1143,7 @@ def phase_prune_path(rng, quick: bool) -> dict:
                        "d_ff": pc.d_ff, "params": pc.param_count()},
         "dense_params": cfg.param_count(),
         "prune_s": prune_s, "seconds": secs, "k4_launches": k4_launches,
-        "peak_mem_bytes": peak,
+        "k2_launches": k2_launches, "peak_mem_bytes": peak,
         "layer_error_ratio_min": min(ratios),
         "layer_error_ratio_max": max(ratios),
         "logit_mse_obspa": mse_ob, "logit_mse_magnitude": mse_mag,
@@ -1561,11 +1603,462 @@ def phase_mamba2_path(rng, quick: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the flash-attention kernel (K2) vs its plain version
+# ---------------------------------------------------------------------------
+
+# (B, S, H, KH, D, DV, causal, window, dtype): the reference's six test
+# shapes (tests/test_kernels.py::test_flash_attention), the main path's
+# (phase 11: TinyLlama at 8 x 512), its OBSPA / SPA-pruned form, a length
+# that is not a multiple of the 64-row tile, a window, bidirectional, f32
+# at model width, and the widest heads the kernel takes
+K2_MAIN = (8, 512, 32, 4, 64, 64, True, 0, torch.bfloat16)
+K2_SHAPES = [
+    (2, 128, 4, 2, 32, 32, True, 0, torch.float32),
+    (1, 200, 4, 1, 64, 48, True, 0, torch.float32),
+    (2, 128, 8, 8, 32, 32, False, 0, torch.float32),
+    (1, 256, 4, 2, 32, 32, True, 64, torch.float32),
+    (1, 128, 2, 2, 64, 64, True, 0, torch.bfloat16),
+    (1, 96, 4, 4, 16, 16, True, 32, torch.bfloat16),
+    K2_MAIN,
+    (8, 512, 16, 2, 64, 32, True, 0, torch.bfloat16),
+    (2, 333, 32, 4, 64, 64, True, 0, torch.bfloat16),
+    (2, 512, 32, 4, 64, 64, True, 100, torch.bfloat16),
+    (2, 300, 32, 4, 64, 64, False, 0, torch.bfloat16),
+    (2, 333, 32, 4, 64, 64, True, 0, torch.float32),
+    (1, 130, 2, 1, 256, 200, True, 0, torch.float32),
+]
+
+
+def k2_case(seed, B, S, H, KH, D, DV, dtype):
+    """q, k, v in model layout (B, S, heads, dim) on the card, standard
+    normal from a seeded generator, rounded to ``dtype``."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=DEV).to(dtype)
+            for shape in ((B, S, H, D), (B, S, KH, D), (B, S, KH, DV))]
+
+
+def k2_label(B, S, H, KH, D, DV, causal, window, dtype) -> str:
+    mask = ("causal" if causal else "bidir") + (f" w{window}" if window
+                                                 else "")
+    return (f"B{B} S{S} H{H} KH{KH} D{D} DV{DV} {mask} "
+            f"{str(dtype).replace('torch.', '')}")
+
+
+def phase_k2_checks() -> float:
+    """K2 against its plain version at every shape; returns the largest
+    absolute error at the main path's shape."""
+    print("phase 10: flash-attention kernel (K2) vs plain PyTorch version",
+          flush=True)
+    main_err = 0.0
+    for i, (B, S, H, KH, D, DV, causal, window, dt) in enumerate(K2_SHAPES):
+        q, k, v = k2_case(300 + i, B, S, H, KH, D, DV, dt)
+        out = k2.flash_attention_kernel(q, k, v, causal=causal,
+                                        window=window)
+        torch.cuda.synchronize()
+        ref = k2.flash_attention_ref(q, k, v, causal=causal, window=window)
+        err = (out.float() - ref.float()).abs()
+        over = excess_over_tol(err, ref)
+        ok = over <= 0 and bool(torch.isfinite(out.float()).all())
+        label = k2_label(B, S, H, KH, D, DV, causal, window, dt)
+        print(f"  {label:44s} max_abs_err {float(err.max()):.3e} (tol "
+              f"{tol_text(dt)}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"K2 {label}: error exceeds {tol_text(dt)} "
+                                 f"by {over} or non-finite output")
+        if (B, S, H, KH, D, DV, causal, window, dt) == K2_MAIN:
+            main_err = float(err.max())
+    return main_err
+
+
+def live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks let through, per (batch, head)."""
+    qi = np.arange(Sq)
+    hi = np.minimum(qi, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(qi - window + 1, 0) if window else np.zeros(Sq, int)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def k2_work(B, S, H, KH, D, DV, causal, window, dtype) -> tuple[int, int]:
+    """(bytes, flops) of one call: q, k, v read and out written once; 2·D
+    flops for q·k and 2·DV for p·v per live pair."""
+    esz = torch.tensor([], dtype=dtype).element_size()
+    nbytes = B * S * (H * D + KH * D + KH * DV + H * DV) * esz
+    return nbytes, 2 * (D + DV) * B * H * live_pairs(S, S, causal, window)
+
+
+def time_k2(iters: int = 20) -> dict:
+    """K2, its plain version and one ``scaled_dot_product_attention`` call
+    (K/V expanded to every query head outside the timed region: a yardstick
+    only) at the main path's shape, rotating over four inputs so that each
+    call finds the L2 cold, as a layer of the model does; plain, kernel,
+    kernel, plain."""
+    B, S, H, KH, D, DV, causal, window, dt = K2_MAIN
+    n_rot = 4
+    cases = [k2_case(400 + i, B, S, H, KH, D, DV, dt) for i in range(n_rot)]
+    lib = [(q.transpose(1, 2).contiguous(),
+            k.transpose(1, 2).repeat_interleave(H // KH, 1).contiguous(),
+            v.transpose(1, 2).repeat_interleave(H // KH, 1).contiguous())
+           for q, k, v in cases]
+    out = k2.flash_attention_kernel(*cases[0])
+    ref = k2.flash_attention_ref(*cases[0])
+    lib_out = F.scaled_dot_product_attention(*lib[0], is_causal=True)
+    torch.cuda.synchronize()
+    max_err = float((out.float() - ref.float()).abs().max())
+    lib_err = float((lib_out.transpose(1, 2).float() - ref.float()).abs()
+                    .max())
+    kern = lambda i: k2.flash_attention_kernel(*cases[i % n_rot])  # noqa
+    plain = lambda i: k2.flash_attention_ref(*cases[i % n_rot])  # noqa
+    libf = lambda i: F.scaled_dot_product_attention(  # noqa: E731
+        *lib[i % n_rot], is_causal=True)
+    plain_a = time_ms(plain, iters=5, warmup=1)
+    kern_a = time_ms(kern, iters=iters)
+    kern_b = time_ms(kern, iters=iters)
+    plain_b = time_ms(plain, iters=5, warmup=1)
+    library = time_ms(libf, iters=iters)
+    device = kernel_device_ms(kern, "flash_attention_kernel", iters)
+    nbytes, flops = k2_work(*K2_MAIN)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS[dt] * 1e3
+    entry = {
+        "name": "flash_attention", "route": "cuda", "source": K2_SOURCE,
+        "replaces": K2_REPLACES, "launches": 0, "max_abs_err": max_err,
+        "ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
+        "bound_ms": max(t_bytes, t_flops),
+        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+        "library_ms": library,
+        "shape": {"B": B, "S": S, "H": H, "KH": KH, "D": D, "DV": DV,
+                  "causal": causal, "window": window, "dtype": "bfloat16"},
+        "bytes": nbytes, "flops": flops, "device_ms": device,
+        "library_max_abs_err_vs_plain": lib_err,
+    }
+    print(f"  flash_attention B{B} S{S} H{H} KH{KH} D{D} causal bf16: kernel "
+          f"{entry['ms']:.4f} ms | plain {entry['plain_ms']:.4f} ms | "
+          f"library {library:.4f} ms | bound {entry['bound_ms']:.5f} ms "
+          f"({entry['bound_by']}: {nbytes / 1e6:.2f} MB at 3.35 TB/s = "
+          f"{t_bytes:.5f} ms; {flops / 1e9:.3f} GFLOP at 989 TFLOP/s = "
+          f"{t_flops:.5f} ms) | max abs err {max_err:.2e} | device time per "
+          f"launch (profiler) "
+          f"{'not measured' if device is None else f'{device:.4f} ms'}",
+          flush=True)
+    del cases, lib
+    torch.cuda.empty_cache()
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: train, prune any time, fine-tune, at full width
+# ---------------------------------------------------------------------------
+
+# Phase 11's knobs: a pool of 8 batches of 8 x 512 tokens of the "id"
+# Markov task, cycled by every training run (40 steps, 5 epochs; 20 to
+# fine-tune), lr 3e-4.  Forty steps of 4096 fresh tokens cannot learn a
+# 32000 x 32000 chain (on an H100, 40 distinct batches at lr 1e-3 moved the
+# held-out loss 10.860 -> 10.812), so training is judged on the pool it
+# saw; one held-out batch is reported beside it.
+ANY_TIME = dict(batch=8, seq=512, pool=8, steps=40, ft_steps=20, lr=3e-4)
+# Dense training must lower the loss on seen batches by this many nats
+DENSE_MARGIN = 1.0
+
+
+class Warm:
+    """A model whose ``init`` returns given parameters (a warm start for
+    ``Trainer``, as the reference's examples build one)."""
+
+    def __init__(self, cfg, params):
+        self.cfg, self.params = cfg, params
+
+    def init(self, seed, device):
+        return self.params
+
+
+def eval_loss(model, params, evalb, plain: bool = False) -> float:
+    """Mean ``Model.loss`` over ``evalb`` under ``torch.no_grad()``: on the
+    card that is K2 (one launch per layer per batch), or with ``plain`` the
+    model's plain attention."""
+    m = build(model.cfg.replace(use_kernels=False)) if plain else model
+    with torch.no_grad():
+        return float(np.mean([float(m.loss(params, b)[0]) for b in evalb]))
+
+
+def train(model, batches_, lr: float) -> tuple[dict, dict]:
+    """One step of ``repro_torch.train.Trainer`` per batch, on the card from
+    ``model.init``; returns (params, record of the run)."""
+    steps = len(batches_)
+    torch.cuda.reset_peak_memory_stats()
+    oc = OptConfig(lr=lr, warmup_steps=max(steps // 10, 1),
+                   total_steps=steps)
+    res = Trainer(model, oc, TrainerConfig(total_steps=steps, log_every=1)
+                  ).train(iter(batches_))
+    step_s = [r["step_s"] for r in res.history[1:]]      # the first warms up
+    tokens = batches_[0]["tokens"].numel()
+    rec = {"steps": steps, "lr": lr,
+           "train_loss_first": res.history[0]["loss"],
+           "train_loss_last": res.history[-1]["loss"],
+           "step_ms_median": 1e3 * float(np.median(step_s)),
+           "first_step_ms": 1e3 * res.history[0]["step_s"],
+           "tokens_per_s": tokens / float(np.median(step_s)),
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "straggler_events": len(res.straggler_events)}
+    params = res.params
+    del res                             # m, v and the error state go
+    torch.cuda.empty_cache()
+    return params, rec
+
+
+def restart_drill(seed: int) -> dict:
+    """``run_with_restarts`` with a failure injected at step 13 of 25
+    (checkpoints every 10 steps, zlib) against an uninterrupted run, at the
+    reduced TinyLlama on the card.  CUDA's embedding backward adds with
+    atomics, in no fixed order, so the two runs are held to a tolerance:
+    the same final loss within 1e-3 relative, and no parameter further
+    apart than 2·lr per step after the restart (AdamW moves a weight by at
+    most about lr a step)."""
+    cfg = reduced(get_config("tinyllama-1.1b"))
+    m = build(cfg)
+    oc = OptConfig(lr=1e-3, warmup_steps=5, total_steps=25)
+
+    def factory(start):
+        def gen():
+            i = start
+            while True:
+                yield batches(cfg, "id", 1, 8, 32, seed=seed + i)[0]
+                i += 1
+        return gen()
+
+    with tempfile.TemporaryDirectory() as td:
+        tc = TrainerConfig(total_steps=25, ckpt_dir=os.path.join(td, "a"),
+                           ckpt_every=10, log_every=5, fail_at_step=13)
+        res = run_with_restarts(m, oc, tc, factory)
+        tc2 = TrainerConfig(total_steps=25, ckpt_dir=os.path.join(td, "b"),
+                            ckpt_every=10, log_every=5)
+        res2 = Trainer(m, oc, tc2).train(factory(0))
+    d = max(float((a.float() - b.float()).abs().max()) for (_, a), (_, b)
+            in zip(tree_paths(res.params), tree_paths(res2.params)))
+    l1, l2 = res.history[-1]["loss"], res2.history[-1]["loss"]
+    out = {"resumed_from": res.resumed_from, "max_param_diff": d,
+           "param_diff_limit": 2 * oc.lr * 15, "final_loss": l1,
+           "final_loss_uninterrupted": l2}
+    print(f"  restart drill (reduced, 25 steps, failure at 13, checkpoint "
+          f"every 10): resumed from {res.resumed_from}, final loss {l1:.6f} "
+          f"vs uninterrupted {l2:.6f}, max param diff {d:.2e} (limit "
+          f"{out['param_diff_limit']:g})", flush=True)
+    if res.resumed_from != 10 or abs(l1 - l2) > 1e-3 * abs(l2) or \
+            d > out["param_diff_limit"]:
+        raise AssertionError(f"restart drill: {out}")
+    return out
+
+
+def phase_any_time(quick: bool, seed: int) -> dict:
+    """The paper's three regimes (``examples/prune_any_time.py``) on
+    full-width TinyLlama through the port's trainer and pruners; every
+    evaluation is a no-grad ``Model.loss`` on K2, held against the plain
+    attention."""
+    print("phase 11: train, prune any time, fine-tune — tinyllama-1.1b "
+          "through repro_torch.train.Trainer; every evaluation on K2",
+          flush=True)
+    cfg = get_config("tinyllama-1.1b")
+    at = dict(ANY_TIME)
+    if quick:
+        cfg = cfg.replace(num_layers=4)
+        at.update(steps=10, ft_steps=5)
+    L = cfg.num_layers
+    model = build(cfg)
+    res: dict = {"model": cfg.name, "layers": L, "config": at,
+                 "dense_margin": DENSE_MARGIN}
+
+    # one Markov task (a 32000 x 32000 float64 transition matrix on the
+    # host), every batch drawn from it: the training pool, a held-out batch
+    # and SNIP's gradient batch
+    t0 = time.time()
+    rss0 = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+    data = batches(cfg, "id", at["pool"] + 2, at["batch"], at["seq"],
+                   seed=seed + 77)
+    res["data"] = {"seconds": time.time() - t0, "batches": len(data),
+                   "host_peak_rss_gib_before": rss0 / 2**20,
+                   "host_peak_rss_gib_after": resource.getrusage(
+                       resource.RUSAGE_SELF).ru_maxrss / 2**20}
+    pool, heldout, grad_b = data[:at["pool"]], data[-2], data[-1]
+    train_b = [pool[i % len(pool)] for i in range(at["steps"])]
+    evalb = pool[:2] + [heldout]         # two seen batches, one held out
+    print(f"  data: {len(data)} 'id' batches of {at['batch']} x {at['seq']} "
+          f"tokens in {res['data']['seconds']:.1f}s (the vocab x vocab task "
+          f"matrix on the host; peak RSS "
+          f"{res['data']['host_peak_rss_gib_before']:.1f} -> "
+          f"{res['data']['host_peak_rss_gib_after']:.1f} GiB)", flush=True)
+
+    k2.reset_launches()                 # counts = this path's only
+    k4.reset_launches()
+    evals = []                          # every evaluation's losses
+
+    def evaluate(label, m, p) -> dict:
+        """Losses on the seen batches and on the held-out one, on K2 and
+        on the plain attention."""
+        r = {}
+        evals.append(r)
+        before = k2.launch_count()
+        for key, bs in (("", evalb[:2]), ("_heldout", evalb[2:])):
+            r["k2" + key] = eval_loss(m, p, bs)
+            r["plain" + key] = eval_loss(m, p, bs, plain=True)
+        diff = max(abs(r["k2"] - r["plain"]),
+                   abs(r["k2_heldout"] - r["plain_heldout"]))
+        r["k2_launches"] = k2.launch_count() - before
+        print(f"  {label:34s} loss on K2 {r['k2']:.5f} (held out "
+              f"{r['k2_heldout']:.5f}) | plain {r['plain']:.5f} "
+              f"({r['plain_heldout']:.5f}) | max diff {diff:.2e} | K2 "
+              f"launches {r['k2_launches']}", flush=True)
+        return r
+
+    def f32_spread(p) -> float:
+        """Mean over every evaluated token of |CE on the plain bf16 model -
+        CE on its float32 twin|: how far rounding alone moves a token's
+        loss.  The kernel only keeps one rounding (p in f32 before PV) that
+        the plain bf16 path makes, so the mean loss on K2 stays within this
+        of the plain one (|mean Δ| <= mean |Δ|)."""
+        m32 = build(cfg.replace(dtype="float32", use_kernels=False))
+        mbf = build(cfg.replace(use_kernels=False))
+        p32 = f32_tree(p)
+        with torch.no_grad():
+            return float(np.mean([float((token_nll(mbf, p, b)
+                                         - token_nll(m32, p32, b)).abs()
+                                        .mean()) for b in evalb]))
+
+    init = model.init(seed=seed)
+    res["dense_init"] = evaluate("dense at init", model, init)
+    spreads = [f32_spread(init)]
+
+    # prune-train: SPA-SNIP at init on one gradient batch, then train
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    snip = prune_model(model, init, 0.5, criterion="snip", grads_batch=grad_b)
+    torch.cuda.synchronize()
+    r = {"prune_s": time.time() - t0, "prune_seconds": snip.report["seconds"],
+         "prune_peak_mem_bytes": torch.cuda.max_memory_allocated(),
+         "pruned_cfg": pruned_dims(snip.cfg)}
+    sm = build(snip.cfg)
+    r["rf_rp"] = rf_rp(model, init, sm, snip.params, evalb[0])
+    r["after_prune"] = evaluate("prune-train: SNIP at init", sm,
+                                snip.params)
+    p_pt, r["train"] = train(Warm(snip.cfg, snip.params), train_b,
+                             at["lr"])
+    r["after_train"] = evaluate("prune-train: trained", sm, p_pt)
+    res["prune_train"] = r
+    del snip, p_pt
+
+    # dense training (shared by the next two regimes)
+    dense, res["dense_train"] = train(Warm(cfg, init), train_b, at["lr"])
+    res["dense_trained"] = evaluate("dense trained", model, dense)
+    spreads.append(f32_spread(dense))
+
+    # train-prune-finetune: SPA-L1 after training, then fine-tune
+    t0 = time.time()
+    l1 = prune_model(model, dense, 0.5, criterion="l1")
+    torch.cuda.synchronize()
+    lm = build(l1.cfg)
+    r = {"prune_s": time.time() - t0, "pruned_cfg": pruned_dims(l1.cfg),
+         "rf_rp": rf_rp(model, dense, lm, l1.params, evalb[0])}
+    r["after_prune"] = evaluate("train-prune-finetune: L1", lm, l1.params)
+    p_ft, r["finetune"] = train(Warm(l1.cfg, l1.params),
+                                train_b[:at["ft_steps"]], at["lr"])
+    r["after_finetune"] = evaluate("train-prune-finetune: tuned", lm, p_ft)
+    res["train_prune_finetune"] = r
+    del l1, p_ft
+
+    # train-prune: OBSPA after training, data-free calibration, no tuning
+    calib = batches(cfg, "datafree", 4, 4, 512, seed=5)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ob = obspa_prune(model, dense, 0.5, calib, calib_mode="datafree")
+    torch.cuda.synchronize()
+    om = build(ob.cfg)
+    r = {"prune_s": time.time() - t0, "prune_seconds": ob.report["seconds"],
+         "prune_peak_mem_bytes": torch.cuda.max_memory_allocated(),
+         "pruned_cfg": pruned_dims(ob.cfg),
+         "rf_rp": rf_rp(model, dense, om, ob.params, evalb[0])}
+    r["after_prune"] = evaluate("train-prune: OBSPA (datafree)", om,
+                                ob.params)
+    res["train_prune_obspa"] = r
+    del ob, dense, init
+
+    torch.cuda.synchronize()
+    res["k2_launches"] = k2.launch_count()
+    res["k4_launches"] = k4.launch_count()
+    res["k2_launches_expected"] = L * len(evalb) * len(evals)
+    res["tolerance"] = max(spreads)
+    res["f32_spreads"] = spreads
+    for key in ("prune_train", "train_prune_finetune", "train_prune_obspa"):
+        rr = res[key].get("rf_rp")
+        if rr:
+            print(f"  {key}: RF {rr['RF']:.4f} RP {rr['RP']:.4f} "
+                  f"(params {rr['params_before']} -> {rr['params_after']})",
+                  flush=True)
+    for key in ("prune_train", "dense_train", "train_prune_finetune"):
+        t = res[key].get("train") or res[key].get("finetune") or res[key]
+        print(f"  {key} training: {t['steps']} steps, median step "
+              f"{t['step_ms_median']:.1f} ms ({t['tokens_per_s']:.0f} "
+              f"tokens/s; first step {t['first_step_ms']:.0f} ms), train "
+              f"loss {t['train_loss_first']:.4f} -> "
+              f"{t['train_loss_last']:.4f}, peak "
+              f"{t['peak_mem_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"  K2 launches {res['k2_launches']} (expected {L} layers x "
+          f"{len(evalb)} batches x {len(evals)} evaluations = "
+          f"{res['k2_launches_expected']}) | K4 launches "
+          f"{res['k4_launches']} | K2 vs plain tolerance: mean per-token "
+          f"|CE plain bf16 - CE f32 twin| = {res['tolerance']:.2e} (dense at "
+          f"init, trained: "
+          f"{', '.join(f'{x:.2e}' for x in spreads)})", flush=True)
+
+    losses = [r[k] for r in evals for k in ("k2", "plain", "k2_heldout",
+                                            "plain_heldout")]
+    diffs = [abs(r["k2" + k] - r["plain" + k]) for r in evals
+             for k in ("", "_heldout")]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss in phase 11: {losses}")
+    if max(diffs) > res["tolerance"]:
+        raise AssertionError(f"K2 vs plain losses differ by {max(diffs)} > "
+                             f"{res['tolerance']}")
+    drop = res["dense_init"]["k2"] - res["dense_trained"]["k2"]
+    res["dense_drop"] = drop
+    if drop < DENSE_MARGIN:
+        raise AssertionError(f"dense training lowered the loss on seen "
+                             f"batches by {drop:.4f} < {DENSE_MARGIN}")
+    if res["k2_launches"] != res["k2_launches_expected"]:
+        raise AssertionError(f"K2 launches {res['k2_launches']} != "
+                             f"{res['k2_launches_expected']}")
+    blocks = L * (math.ceil(cfg.n_heads * cfg.v_head_dim_ / k4.BLOCK)
+                  + math.ceil(cfg.d_ff / k4.BLOCK))
+    if res["k4_launches"] != blocks:
+        raise AssertionError(f"K4 launches {res['k4_launches']} != {blocks}")
+    held = res["dense_init"]["k2_heldout"] - \
+        res["dense_trained"]["k2_heldout"]
+    print(f"  dense training lowered the loss on seen batches by {drop:.4f} "
+          f"nats (margin {DENSE_MARGIN}; held out: {held:.4f})", flush=True)
+    res["restart_drill"] = restart_drill(seed + 5000)
+    torch.cuda.empty_cache()
+    return res
+
+
+def token_nll(model, params, batch) -> torch.Tensor:
+    """Per-token cross-entropy of next-token prediction, f32 (what
+    ``Model.loss`` averages)."""
+    logits = model.forward(params, batch)[:, :-1].float()
+    tgt = batch["tokens"][:, 1:].long()
+    return torch.logsumexp(logits, -1) - logits.gather(-1, tgt[..., None]
+                                                       )[..., 0]
+
+
+def pruned_dims(c) -> dict:
+    return {"n_heads": c.n_heads, "n_kv_heads": c.n_kv_heads,
+            "head_dim": c.head_dim_, "v_head_dim": c.v_head_dim_,
+            "d_ff": c.d_ff, "params": c.param_count()}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="cut phases 4, 7 and 9 to 4 layers and a few "
-                         "requests")
+                    help="cut phases 4, 7, 9 and 11 to 4 layers and a few "
+                         "requests or steps")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode and one prefill step with "
                          "torch.profiler: device busy share, top kernels")
@@ -1596,13 +2089,14 @@ def main() -> int:
           flush=True)
     t0 = time.time()
     sources = {"paged_attention": K1_SOURCE, "obspa_update": K4_SOURCE,
-               "ssd_scan": K3_SOURCE}
+               "ssd_scan": K3_SOURCE, "flash_attention": K2_SOURCE}
     with ThreadPoolExecutor(len(sources)) as ex:
         for f in [ex.submit(_build.build, n) for n in sources]:
             f.result()
     ensure_built()
     k4.ensure_built()
     k3.ensure_built()
+    k2.ensure_built()
     print(f"  built {len(sources)} libraries in {time.time() - t0:.1f}s "
           f"(set-up)", flush=True)
     for name, src in sources.items():
@@ -1651,6 +2145,16 @@ def main() -> int:
     k3_entry["launches"] = mamba_res["k3_launches"]
     k3_entry["max_rel_err"] = k3_rel
     kernels.append(k3_entry)
+    k2_err = phase_k2_checks()
+    print("phase 10b: K2 time at the main path's shape", flush=True)
+    k2_entry = time_k2()
+    any_res = phase_any_time(args.quick, args.seed)
+    k2_entry["launches"] = any_res["k2_launches"]
+    k2_entry["launches_teacher_forcing"] = {
+        "phase_4": main_res["k2_launches_teacher_forcing"],
+        "phase_7": prune_res["k2_launches"]}
+    k2_entry["max_abs_err"] = max(k2_entry["max_abs_err"], k2_err)
+    kernels.append(k2_entry)
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was never launched by its "
@@ -1660,6 +2164,7 @@ def main() -> int:
     print(json.dumps({"device_code_ms": dev_res}))
     print(json.dumps({"prune_path": prune_res, "k4_sweep": k4_sweep}))
     print(json.dumps({"mamba2_path": mamba_res}))
+    print(json.dumps({"any_time_path": any_res}))
     print(f"total {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -124,9 +124,12 @@ class ArchConfig:
         L = self.num_layers
         per_layer = 0
         if self.family != "ssm":
-            # attention: q, k, v, o (+ qk_norm scales)
-            per_layer += d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd \
-                + self.n_heads * hd * d
+            # attention: q, k, v, o (+ qk_norm scales); v and o at the V head
+            # dim, which pruning may narrow on its own (the reference counts
+            # them at head_dim)
+            vhd = self.v_head_dim_
+            per_layer += d * self.n_heads * hd + d * self.n_kv_heads * hd \
+                + d * self.n_kv_heads * vhd + self.n_heads * vhd * d
             if self.qk_norm:
                 per_layer += 2 * hd
         if self.family == "ssm" or self.hybrid:

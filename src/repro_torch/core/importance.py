@@ -8,10 +8,11 @@ groups.  Per-weight scores and their per-axis reductions run on the device
 the parameters live on; the per-unit sums are host (numpy) work, as in the
 reference.
 
-The gradient criteria of the reference (``snip``, ``grasp``, ``crop``) are
-not ported yet: they raise ``NotImplementedError`` naming their ROADMAP.md
-entry.  ``random`` draws from a seeded ``torch.Generator``: it cannot
-reproduce JAX's PRNG bits, only their distribution.
+The gradient criteria (SNIP ``|g·θ|``, GraSP ``-θ·Hg``, CroP ``|θ·Hg|``)
+take the gradient from ``torch.func.grad`` and the Hessian-gradient product
+from ``torch.func.jvp`` over it, as the reference takes ``jax.jvp`` over
+``jax.grad``.  ``random`` draws from a seeded ``torch.Generator``: it
+cannot reproduce JAX's PRNG bits, only their distribution.
 """
 from __future__ import annotations
 
@@ -22,19 +23,36 @@ from repro_torch.core.graph import tree_map_paths, tree_paths
 from repro_torch.core.groups import Group
 
 GRADIENT_CRITERIA = ("snip", "grasp", "crop")
-_LATER = ("ROADMAP.md Queue 1 item 5 (gradient criteria snip/grasp/crop "
-          "need the training slice's gradients)")
 
 
-def leaf_scores(params, criterion: str, seed: int = 0):
+def hessian_grad_product(loss_fn, params, *args):
+    """(g, Hg) where g = ∇loss — one jvp over the gradient function
+    (GraSP / CroP)."""
+    grad_fn = torch.func.grad(loss_fn)
+    g = grad_fn(params, *args)
+    _, hg = torch.func.jvp(lambda p: grad_fn(p, *args), (params,), (g,))
+    return g, hg
+
+
+def leaf_scores(params, criterion: str, grads=None, hg=None, seed: int = 0):
     """Per-weight importance S(θ) as an f32 tree of the same nesting."""
     if criterion in ("l1", "magnitude"):
         return tree_map_paths(lambda _, x: x.float().abs(), params)
     if criterion == "l2":
         return tree_map_paths(lambda _, x: x.float().square(), params)
     if criterion in GRADIENT_CRITERIA:
-        raise NotImplementedError(f"criterion {criterion!r} is not ported "
-                                  f"yet — {_LATER}")
+        other = grads if criterion == "snip" else hg
+        if other is None:
+            raise ValueError(f"criterion {criterion!r} needs "
+                             f"{'grads' if criterion == 'snip' else 'Hg'}")
+        by = dict(tree_paths(other))
+        if criterion == "grasp":
+            # GraSP scores -θ·Hg; the lowest scores are pruned, so the sign
+            # makes "high = keep"
+            return tree_map_paths(
+                lambda k, x: -(x.float() * by[k].float()), params)
+        return tree_map_paths(
+            lambda k, x: (x.float() * by[k].float()).abs(), params)
     if criterion == "random":
         leaves = tree_paths(params)
         dev = leaves[0][1].device if leaves else torch.device("cpu")

@@ -26,7 +26,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.graph import (CompGraph, trace_graph, tree_map_paths,
                                     tree_paths)
 from repro_torch.core.groups import Group, build_groups
-from repro_torch.core.importance import leaf_scores, unit_scores
+from repro_torch.core.importance import (GRADIENT_CRITERIA,
+                                         hessian_grad_product, leaf_scores,
+                                         unit_scores)
 from repro_torch.models import transformer as tf
 
 
@@ -214,19 +216,32 @@ def restack(cfg: ArchConfig, analysis_params):
 # ---------------------------------------------------------------------------
 
 def prune_model(model, params, ratio: float, criterion: str = "l1",
-                align_units: int = 1, seed: int = 0, mesh_divisor: int = 0
-                ) -> PruneResult:
+                align_units: int = 1, grads_batch=None, seed: int = 0,
+                mesh_divisor: int = 0) -> PruneResult:
     """End-to-end SPA pruning (paper §3.2 four steps), per group.
 
     ``align_units`` rounds kept unit counts to a multiple (1: none);
     ``mesh_divisor`` keeps previously divisible axes divisible by a
-    tensor-parallel degree.  ``report["seconds"]`` holds the time of each
-    phase (trace, group, score, slice)."""
+    tensor-parallel degree.  The gradient criteria (snip, grasp, crop)
+    differentiate the loss on ``grads_batch`` through the model's plain
+    attention (``use_kernels=False``: the flash-attention kernel is forward
+    only).  ``report["seconds"]`` holds the time of each phase (trace,
+    group, score, slice)."""
     cfg = model.cfg
     clock = PhaseClock(tree_paths(params)[0][1].device)
     _, groups, ap = analyze(model, params, clock)
     targets = prunable(groups)
-    scores_tree = leaf_scores(ap, criterion, seed=seed)
+    grads = hg = None
+    if criterion in GRADIENT_CRITERIA:
+        if grads_batch is None:
+            raise ValueError(f"criterion {criterion!r} needs a grads batch")
+        plain = type(model)(cfg.replace(use_kernels=False))
+        loss = lambda p: plain.loss(p, grads_batch)[0]  # noqa: E731
+        if criterion == "snip":
+            grads = torch.func.grad(loss)(ap)
+        else:
+            grads, hg = hessian_grad_product(loss, ap)
+    scores_tree = leaf_scores(ap, criterion, grads=grads, hg=hg, seed=seed)
     scores = unit_scores(targets, scores_tree)
     pruned = select_units(targets, scores, ratio, align_units=align_units,
                           mesh_divisor=mesh_divisor)

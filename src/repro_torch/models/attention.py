@@ -21,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (
     paged_attention, paged_prefill_attention, quantize)
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm
@@ -89,22 +90,36 @@ def _sdpa(q, k, v, mask):
     return torch.einsum("bhgqs,bshk->bqhgk", probs, v)
 
 
+def _on_kernel(cfg, x: torch.Tensor) -> bool:
+    """Whether the full-sequence attention goes to K2: CUDA tensors, unless
+    the config asks for the plain version (``use_kernels=False``, which
+    training, the gradient criteria and the pruning trace always do)."""
+    return cfg.use_kernels and x.is_cuda
+
+
 def attention_block(params: dict, cfg, x: torch.Tensor,
                     positions: torch.Tensor, mask_mode: str,
                     window: int = 0, prefix_len: int = 0) -> torch.Tensor:
-    """Full-sequence attention (train / prefill), plain PyTorch.
+    """Full-sequence attention (train / prefill).
 
-    The reference's ``use_pallas`` branch goes through its flash-attention
-    kernel.  That kernel's Hopper port (K2 in ROADMAP.md, Queue 2) has not
-    landed, so this function is the plain version on every device and
-    ``cfg.use_kernels`` does not change it."""
+    The counterpart of the reference's ``use_pallas`` branch: on the
+    kernel route (``_on_kernel``) the causal, bidirectional and sliding
+    masks go through flash attention (K2, forward only); ``prefix`` and
+    every other call run the plain ``_sdpa``, which is also what autograd
+    differentiates."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, cfg, x, positions)
-    mask = _build_mask(mask_mode, positions, positions, window, prefix_len)
-    if mask.ndim == 2:
-        mask = mask[None].expand((B,) + tuple(mask.shape))
-    o = _sdpa(q, k, v, mask)
-    o = o.reshape(B, S, o.shape[2] * o.shape[3], o.shape[4])
+    if _on_kernel(cfg, x) and mask_mode in ("causal", "bidir", "sliding"):
+        qf = q.reshape(B, S, q.shape[2] * q.shape[3], q.shape[4])
+        o = flash_attention(qf, k, v, causal=mask_mode != "bidir",
+                            window=window if mask_mode == "sliding" else 0)
+    else:
+        mask = _build_mask(mask_mode, positions, positions, window,
+                           prefix_len)
+        if mask.ndim == 2:
+            mask = mask[None].expand((B,) + tuple(mask.shape))
+        o = _sdpa(q, k, v, mask)
+        o = o.reshape(B, S, o.shape[2] * o.shape[3], o.shape[4])
     return torch.einsum("bshk,hkd->bsd", o, params["wo"])
 
 

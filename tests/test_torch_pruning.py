@@ -149,9 +149,69 @@ def test_random_criterion_is_seeded_uniform():
 
 @pytest.mark.parametrize("criterion", ["snip", "grasp", "crop"])
 def test_gradient_criteria_name_their_roadmap_item(criterion):
+    """The gradient criteria are ported (ROADMAP.md Queue 1 item 5); like
+    the reference's, they need the batch their gradient is taken on."""
     _, _, tm, tp = models("tinyllama")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="needs a grads batch"):
         prune_model(tm, tp, 0.5, criterion=criterion)
+
+
+@pytest.mark.parametrize("criterion", ["snip", "grasp", "crop"])
+@pytest.mark.parametrize("case", ["tinyllama", "tinyllama-kv2"])
+def test_gradient_criteria_match_jax(case, criterion):
+    """SNIP |g·θ|, GraSP -θ·Hg and CroP |θ·Hg| on the same grads batch:
+    per-weight scores within 1e-4 of each leaf's largest score (g and Hg
+    agree to summation order; Hg comes from a jvp over the gradient in both
+    packages), and the same pruned units, config and weights."""
+    jm, jp, tm, tp = models(case)
+    toks = np.random.default_rng(21).integers(
+        0, jm.cfg.vocab_size, size=(4, 24)).astype(np.int32)
+    jr = j_prune_model(jm, jp, 0.5, criterion=criterion,
+                       grads_batch={"tokens": jnp.asarray(toks)})
+    tr = prune_model(tm, tp, 0.5, criterion=criterion,
+                     grads_batch={"tokens": torch.from_numpy(toks)})
+    assert tr.pruned_units == jr.pruned_units
+    assert tr.cfg == convert.convert_config(dataclasses.asdict(jr.cfg))
+    jleaves = dict(tree_paths(jax.tree.map(np.asarray, jr.params)))
+    for path, leaf in tree_paths(tr.params):
+        np.testing.assert_array_equal(leaf.numpy(), jleaves[path])
+    # the scores themselves, on the analysis-form parameters
+    from repro.core.importance import hessian_grad_product as j_hgp
+    from repro.core.importance import leaf_scores as j_leaf_scores
+    from repro.core.pruner import analyze as j_an
+    from repro_torch.core.importance import hessian_grad_product
+    _, _, jap = j_an(jm, jp)
+    _, _, tap = analyze(tm, tp)
+    jloss = lambda p: jm.loss(p, {"tokens": jnp.asarray(toks)},  # noqa
+                              unroll=True)[0]
+    tloss = lambda p: tm.loss(p, {"tokens": torch.from_numpy(toks)})[0]  # noqa
+    if criterion == "snip":
+        jg, jh = jax.grad(jloss)(jap), None
+        tg, th = torch.func.grad(tloss)(tap), None
+    else:
+        jg, jh = j_hgp(jloss, jap)
+        tg, th = hessian_grad_product(tloss, tap)
+    want = dict(tree_paths(jax.tree.map(np.asarray, j_leaf_scores(
+        jap, criterion, grads=jg, hg=jh))))
+    for path, sc in tree_paths(leaf_scores(tap, criterion, grads=tg,
+                                           hg=th)):
+        w = want[path]
+        np.testing.assert_allclose(sc.numpy(), w, rtol=0,
+                                   atol=1e-4 * float(np.abs(w).max()),
+                                   err_msg=path)
+
+
+def test_pruned_dense_param_count_is_the_tensors():
+    """The analytic count of a pruned dense config (V head dim narrowed on
+    its own) equals the parameters its tensors hold; the reference's
+    formula counts v and o at head_dim."""
+    _, _, tm, tp = models("tinyllama-kv2")
+    pr = prune_model(tm, tp, 0.5, criterion="l1")
+    assert pr.cfg.v_head_dim_ < pr.cfg.head_dim_
+    held = sum(t.numel() for _, t in tree_paths(pr.params))
+    assert pr.cfg.param_count() == held
+    assert tm.cfg.param_count() == sum(t.numel()
+                                       for _, t in tree_paths(tp))
 
 
 def test_engine_serves_the_port_pruned_model_like_the_oracle():
