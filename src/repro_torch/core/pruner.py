@@ -225,8 +225,8 @@ def prune_model(model, params, ratio: float, criterion: str = "l1",
     tensor-parallel degree.  The gradient criteria (snip, grasp, crop)
     differentiate the loss on ``grads_batch`` through the model's plain
     attention (``use_kernels=False``: the flash-attention kernel is forward
-    only).  ``report["seconds"]`` holds the time of each phase (trace,
-    group, score, slice)."""
+    only) with ``torch.func``, without remat.  ``report["seconds"]`` holds
+    the time of each phase (trace, group, score, slice)."""
     cfg = model.cfg
     clock = PhaseClock(tree_paths(params)[0][1].device)
     _, groups, ap = analyze(model, params, clock)
@@ -235,7 +235,9 @@ def prune_model(model, params, ratio: float, criterion: str = "l1",
     if criterion in GRADIENT_CRITERIA:
         if grads_batch is None:
             raise ValueError(f"criterion {criterion!r} needs a grads batch")
-        plain = type(model)(cfg.replace(use_kernels=False))
+        # torch.func differentiates: no remat (torch.utils.checkpoint
+        # raises under its transforms)
+        plain = type(model)(cfg.replace(use_kernels=False, remat=False))
         loss = lambda p: plain.loss(p, grads_batch)[0]  # noqa: E731
         if criterion == "snip":
             grads = torch.func.grad(loss)(ap)

@@ -4,11 +4,14 @@ flash_attention.cu``), which replaces the Pallas TPU kernel
 
 One thread block per (64-row query tile, head, batch) keeps the query tile
 and the online-softmax state on chip and streams K/V tiles through shared
-memory; logits, running max / sum and the accumulator are f32, inputs f32 or
-bf16, the output in q's dtype.  The kernel reads the model's (B, S, H, D)
-tensors through their strides (only the last axis must be contiguous), so
-the wrapper neither transposes nor copies them.  The plain PyTorch version
-is ``ref.attention_reference`` (``ops.flash_attention_ref``).
+memory; logits, running max / sum and the accumulator are f32, the output
+in q's dtype.  bf16 inputs go to the tensor-core instance (wgmma, K/V
+double-buffered by cp.async), f32 inputs to the CUDA-core one; ``plan``
+picks the instance and the copy path per launch.  The kernel reads the
+model's (B, S, H, D) tensors through their strides (only the last axis must
+be contiguous), so the wrapper neither transposes nor copies them.  The
+plain PyTorch version is ``ref.attention_reference``
+(``ops.flash_attention_ref``).
 
 Forward only, as in the reference: the wrapper raises when autograd would
 need a gradient through it (training differentiates the model's plain
@@ -19,6 +22,7 @@ tensors to it).  ``launches`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -26,6 +30,9 @@ from repro_torch.kernels import _build
 
 MAX_HEAD_DIM = 256
 _TYPES = (torch.float32, torch.bfloat16)
+# accumulator widths of the tensor-core instances: DV picks the narrowest
+# that holds it
+DV_TILES = (32, 64, 128, 256)
 
 launches = 0                # kernel launches made by this process
 _fn = None
@@ -54,7 +61,7 @@ def _launcher():
         fn = lib.flash_attention_launch
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         fn.argtypes = ([p] * 4 + [i] * 7 + [ll] * 12
-                       + [ctypes.c_float, i, i, i, p])
+                       + [ctypes.c_float, i, i, i, i, i, i, p])
         fn.restype = ctypes.c_int
         lib.flash_attention_error_string.argtypes = [ctypes.c_int]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
@@ -100,6 +107,40 @@ def check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"batch {B} or heads {H} exceed the grid's 65535")
 
 
+class Plan(NamedTuple):
+    """Which instance of the kernel a launch takes: ``"wgmma"`` (bf16,
+    tensor cores, ``dv_tile`` accumulator columns) or ``"cuda_core"`` (f32);
+    ``vec16``: every q / k / v row starts on 16 bytes, so tiles are copied
+    by 16-byte ``cp.async``, else element by element (the narrow path);
+    ``heads``: query heads of one KV head per block, which share its K/V
+    tiles (2 where the group size is even)."""
+    instance: str
+    dv_tile: int
+    vec16: bool
+    heads: int
+
+
+def rows_aligned16(t: torch.Tensor) -> bool:
+    """Whether every (batch, position, head) row of ``t`` starts on a
+    16-byte boundary: the data pointer and every stride of an axis longer
+    than 1, in bytes, are multiples of 16."""
+    esz = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        (st * esz) % 16 == 0 for st, n in zip(t.stride()[:3], t.shape[:3])
+        if n > 1)
+
+
+def plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> Plan:
+    """The instance and copy path for these (checked) inputs."""
+    if q.dtype == torch.float32:
+        return Plan("cuda_core", 0, False, 1)
+    DV = v.shape[3]
+    tile = next(t for t in DV_TILES if DV <= t)
+    group = q.shape[2] // k.shape[2]
+    return Plan("wgmma", tile, all(rows_aligned16(t) for t in (q, k, v)),
+                2 if group % 2 == 0 else 1)
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, causal: bool = True,
                            window: int = 0, scale: float | None = None
@@ -123,11 +164,13 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     Sk, KH, DV = k.shape[1], k.shape[2], v.shape[3]
     scale = scale if scale is not None else D ** -0.5
     out = torch.empty((B, Sq, H, DV), dtype=q.dtype, device=q.device)
+    pl = plan(q, k, v)
     fn, errstr = _launcher()
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H,
             KH, Sq, Sk, D, DV, *strides, float(scale), int(causal),
-            int(window), int(q.dtype == torch.bfloat16))
+            int(window), int(q.dtype == torch.bfloat16), pl.dv_tile,
+            int(pl.vec16), pl.heads)
     dev = q.device
     if dev.index in (None, torch.cuda.current_device()):
         rc = fn(*args, torch.cuda.current_stream().cuda_stream)

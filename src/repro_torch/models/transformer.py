@@ -18,6 +18,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention import is_quantized, pool_dtype
@@ -118,7 +119,15 @@ def layer_forward(lp: dict, cfg: ArchConfig, x: torch.Tensor,
 def forward(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     """Hidden states (B, S, d) after the final norm.  ``params["layers"]``
     may be the stacked tree or a list of per-layer trees
-    (``unstack_layers``)."""
+    (``unstack_layers``).
+
+    With ``cfg.remat`` and grad enabled, each layer keeps only its input
+    for the backward pass and is recomputed there
+    (``torch.utils.checkpoint``), as the reference wraps every layer in
+    ``jax.checkpoint`` with nothing saveable: the same gradients, one more
+    forward, and no layer's activations held across the model.  It needs
+    ``torch.autograd`` (the trainer's); ``torch.func`` transforms refuse
+    it, so their callers pass ``remat=False``."""
     require_ported(cfg)
     tokens = batch["tokens"]
     h = params["tok_embed"][tokens.long()]
@@ -126,9 +135,14 @@ def forward(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     positions = torch.arange(S, dtype=torch.int32, device=h.device
                              )[None].expand(B, S)
     layers = params["layers"]
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
         lp = layers[i] if isinstance(layers, list) else _layer(layers, i)
-        h = layer_forward(lp, cfg, h, positions)
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(
+                layer_forward, lp, cfg, h, positions, use_reentrant=False)
+        else:
+            h = layer_forward(lp, cfg, h, positions)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 

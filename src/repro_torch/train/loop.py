@@ -10,9 +10,11 @@ port of ``repro.train.loop``).
     ...)`` batch axis;
   - optional int8 + error-feedback gradient compression.
 
-The loss is differentiated with ``torch.func`` on the model's plain
+The loss is differentiated with ``torch.autograd`` on the model's plain
 attention (``use_kernels=False``), as the reference trains with
-``use_pallas=False``: the flash-attention kernel is forward only.  The
+``use_pallas=False``: the flash-attention kernel is forward only.  With
+``cfg.remat`` every layer is recomputed in the backward pass
+(``torch.utils.checkpoint``, which ``torch.func`` transforms refuse).  The
 parameters, m, v and the error state are updated in place (the reference
 donates them to its jitted step).
 """
@@ -30,7 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.compress import compress_grads, init_error_state
 from repro_torch.train.optim import (OptConfig, adamw_update, f32_zeros,
-                                     init_opt_state)
+                                     init_opt_state, value_and_grad)
 
 
 @dataclasses.dataclass
@@ -58,8 +60,6 @@ def make_grad_step(model, opt_cfg: OptConfig, trainer_cfg: TrainerConfig):
     from repro_torch.models.api import Model
     plain = Model(model.cfg.replace(use_kernels=False))
     accum = trainer_cfg.accum_steps
-    value_and_grad = torch.func.grad_and_value(
-        lambda p, b: plain.loss(p, b), has_aux=True)
 
     def step(params, opt_state, err_state, batch):
         if accum > 1:
@@ -68,14 +68,14 @@ def make_grad_step(model, opt_cfg: OptConfig, trainer_cfg: TrainerConfig):
             loss = 0.0
             for i in range(accum):
                 mb = {k: v[i] for k, v in batch.items()}
-                g, (l_mb, _) = value_and_grad(params, mb)
+                g, (l_mb, _) = value_and_grad(plain.loss, params, mb)
                 for path, gi in tree_paths(g):
                     acc_by[path].add_(gi.float() / accum)
                 loss = loss + l_mb / accum
                 del g
             metrics = {"ce": loss}
         else:
-            grads, (loss, metrics) = value_and_grad(params, batch)
+            grads, (loss, metrics) = value_and_grad(plain.loss, params, batch)
         if trainer_cfg.compress_grads:
             grads, err_state = compress_grads(grads, err_state)
         params, opt_state, om = adamw_update(params, grads, opt_state,

@@ -91,6 +91,24 @@ def adamw_update(params, grads, state: dict, cfg: OptConfig):
     return params, state, {"lr": lr, "grad_norm": gnorm}
 
 
+def value_and_grad(loss_fn, params, batch):
+    """``(grads, (loss, metrics))`` of ``loss_fn(params, batch) -> (loss,
+    metrics)``: what ``torch.func.grad_and_value(..., has_aux=True)`` gives,
+    taken by ``torch.autograd`` on detached leaves instead, so that the
+    model's remat (``torch.utils.checkpoint``) can run inside.  A leaf the
+    loss does not reach gets zeros."""
+    leaves = tree_map_paths(
+        lambda _, x: x.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, metrics = loss_fn(leaves, batch)
+    paths = tree_paths(leaves)
+    gs = torch.autograd.grad(loss, [x for _, x in paths], allow_unused=True)
+    by = {k: torch.zeros_like(x) if g is None else g
+          for (k, x), g in zip(paths, gs)}
+    return (tree_map_paths(lambda k, _: by[k], leaves),
+            (loss.detach(), {k: v.detach() for k, v in metrics.items()}))
+
+
 def make_train_step(model, opt_cfg: OptConfig):
     """(params, opt_state, batch) -> (params, opt_state, metrics).  The loss
     is differentiated on the model's plain attention (``use_kernels=False``),
@@ -99,8 +117,7 @@ def make_train_step(model, opt_cfg: OptConfig):
     plain = Model(model.cfg.replace(use_kernels=False))
 
     def train_step(params, opt_state, batch):
-        grads, (loss, metrics) = torch.func.grad_and_value(
-            lambda p: plain.loss(p, batch), has_aux=True)(params)
+        grads, (loss, metrics) = value_and_grad(plain.loss, params, batch)
         new_params, new_state, opt_metrics = adamw_update(
             params, grads, opt_state, opt_cfg)
         metrics = dict(metrics, loss=loss, **opt_metrics)

@@ -9,7 +9,15 @@ TinyLlama's D 64 / DV 32 at S 200.  The tolerance is the reference's: 1e-5
 for f32 and 3e-2 for bf16, absolute and relative.  The CUDA kernel itself
 has no interpret mode: its comparison with the plain version is the
 ``gpu``-marked test below, and ``chip_smoke.py`` phase 10 on the card.
+
+The bf16 tensor-core design is emulated here in plain PyTorch (64-key
+tiles, scale·log2 e with exp2, a running max from -1e30, P split into two
+bf16 terms before an f32-accumulated PV, the output rounded to bf16) and
+held to phase 10's one-bf16-step tolerance at CPU-sized versions of its bf16
+shapes; so is ``plan``, the wrapper's choice of instance and copy path.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -21,7 +29,9 @@ from repro.kernels.flash_attention import (
     flash_attention_ref as j_flash_attention_ref)
 from repro_torch.convert import to_tensor
 from repro_torch.kernels.flash_attention import (
-    check_args, flash_attention, flash_attention_kernel, flash_attention_ref)
+    check_args, flash_attention, flash_attention_kernel, flash_attention_ref,
+    plan)
+from repro_torch.kernels.flash_attention.flash_attention import DV_TILES
 from repro_torch.kernels.flash_attention.ref import attention_reference
 
 # (B, S, H, KH, D, DV, causal, window, dtype): the reference's six shapes,
@@ -181,6 +191,149 @@ def test_kernel_refuses_autograd():
         flash_attention(q, k, v)
 
 
+# phase 10's bf16 shapes of the tensor-core instance, at CPU size for the
+# emulation below: (B, S, H, KH, D, DV, causal, window)
+TC_SHAPES = {
+    "S128-D64": (1, 128, 2, 2, 64, 64, True, 0),
+    "S96-D16-window32": (1, 96, 4, 4, 16, 16, True, 32),
+    "S512-H8-KH1-D64-main": (1, 512, 8, 1, 64, 64, True, 0),
+    "S512-D64-DV32-pruned": (1, 512, 8, 1, 64, 32, True, 0),
+    "S333-D64": (1, 333, 8, 1, 64, 64, True, 0),
+    "S512-D64-window100": (1, 512, 8, 1, 64, 64, True, 100),
+    "S300-D64-bidir": (1, 300, 8, 1, 64, 64, False, 0),
+    "S512-D128": (1, 512, 4, 1, 128, 128, True, 0),
+    "S130-D256-DV200": (1, 130, 2, 1, 256, 200, True, 0),
+    "S200-D48-DV20": (1, 200, 4, 2, 48, 20, True, 0),
+    "S100-D20-bidir": (1, 100, 4, 1, 20, 20, False, 0),
+    "S2048-D64": (1, 2048, 2, 1, 64, 64, True, 0),
+    "S1024-D64-window256": (1, 1024, 4, 1, 64, 64, True, 256),
+}
+ONE_BF16_STEP = (2e-4, 2.0 ** -7)     # chip_smoke.py's bf16 tolerance
+
+
+def tile_emulation(q, k, v, *, causal, window, split_p=True):
+    """The tensor-core kernel's arithmetic in plain PyTorch, model layout,
+    bf16 in and out: per 64-key tile, S = Q Kᵀ in f32, logits times
+    scale·log2 e, masked ones -inf, running max from -1e30, p = exp2(s - m),
+    P rounded to bf16 (``split_p``: plus the bf16 rounding of the rest, the
+    second term the kernel multiplies) before an f32 PV, out = O / max(l,
+    1e-30) rounded to bf16.  Tiles the kernel skips (wholly masked) leave
+    the state as it is, so every tile is visited here."""
+    B, Sq, H, D = q.shape
+    Sk, KH, DV = k.shape[1], k.shape[2], v.shape[3]
+    G = H // KH
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2).repeat_interleave(G, 1)
+    vf = v.float().transpose(1, 2).repeat_interleave(G, 1)
+    sl2 = torch.tensor(D ** -0.5, dtype=torch.float32) * torch.tensor(
+        math.log2(math.e), dtype=torch.float32)
+    m = torch.full((B, H, Sq), -1e30)
+    l = torch.zeros((B, H, Sq))
+    o = torch.zeros((B, H, Sq, DV))
+    qi = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, 64):
+        kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+        kj = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        live = torch.ones((Sq, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            live &= kj <= qi
+        if window:
+            live &= kj > qi - window
+        s = torch.where(live, (qf @ kt.transpose(-1, -2)) * sl2,
+                        torch.tensor(-math.inf))
+        mn = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - mn)
+        p = torch.exp2(s - mn[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        if split_p:
+            pv = pv + (p - hi).bfloat16().float() @ vt
+        o = o * alpha[..., None] + pv
+        m = mn
+    out = o / torch.clamp(l, min=1e-30)[..., None]
+    return out.transpose(1, 2).bfloat16()
+
+
+def excess_over_one_bf16_step(got, ref) -> float:
+    atol, rtol = ONE_BF16_STEP
+    err = (got.float() - ref.float()).abs()
+    return float((err - (atol + rtol * ref.float().abs())).max())
+
+
+@pytest.mark.parametrize("case", sorted(TC_SHAPES))
+def test_tensor_core_design_within_one_bf16_step(case):
+    """The bf16 design, emulated, against the plain version (P in f32)
+    within phase 10's tolerance ``2e-4 + 2^-7·|plain|`` at every bf16
+    shape, and finite."""
+    B, S, H, KH, D, DV, causal, window = TC_SHAPES[case]
+    q, k, v = [to_tensor(a) for a in
+               make_case(11, B, S, H, KH, D, DV, "bf16")]
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    got = tile_emulation(q, k, v, causal=causal, window=window)
+    assert got.shape == ref.shape and torch.isfinite(got.float()).all()
+    assert excess_over_one_bf16_step(got, ref) <= 0, case
+
+
+def test_one_bf16_rounding_of_p_would_not_fit():
+    """Why P is split in two: rounded once to bf16 before PV (as the
+    model's plain attention does), p moves outputs near zero by more than
+    the tolerance's 2e-4 at the main path's shape; the two-term split does
+    not."""
+    B, S, H, KH, D, DV, causal, window = TC_SHAPES["S512-H8-KH1-D64-main"]
+    q, k, v = [to_tensor(a) for a in
+               make_case(11, B, S, H, KH, D, DV, "bf16")]
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    once = tile_emulation(q, k, v, causal=causal, window=window,
+                          split_p=False)
+    assert excess_over_one_bf16_step(once, ref) > 0
+    assert excess_over_one_bf16_step(
+        tile_emulation(q, k, v, causal=causal, window=window), ref) <= 0
+
+
+def test_plan_puts_every_bf16_shape_on_tensor_cores():
+    """Every bf16 head-dim pair ``check_args`` accepts maps to a tensor-core
+    instance whose accumulator holds DV (the narrowest such); every f32
+    shape maps to the CUDA-core instance."""
+    for D in (1, 8, 16, 20, 48, 64, 100, 128, 200, 256):
+        for DV in range(1, 257):
+            a = _args(S=2, H=2, KH=1, D=D, DV=DV, dtype=torch.bfloat16)
+            check_args(*a)
+            pl = plan(*a)
+            assert pl.instance == "wgmma" and DV <= pl.dv_tile, (D, DV)
+            assert pl.dv_tile == min(t for t in DV_TILES if DV <= t)
+            f = _args(S=2, H=2, KH=1, D=D, DV=DV)
+            assert plan(*f) == ("cuda_core", 0, False, 1)
+
+
+def test_plan_packs_query_heads_of_one_kv_head():
+    """Two query heads of one KV head share a block (and its K/V tiles)
+    where the group size H / KH is even; one otherwise."""
+    for H, KH, heads in ((32, 4, 2), (16, 2, 2), (4, 2, 2), (6, 2, 1),
+                         (4, 4, 1), (3, 1, 1)):
+        a = _args(S=2, H=H, KH=KH, dtype=torch.bfloat16)
+        assert plan(*a).heads == heads, (H, KH)
+
+
+def test_plan_copy_path_follows_row_alignment():
+    """16-byte ``cp.async`` where every q / k / v row starts on 16 bytes
+    (the model's tensors, D 48), the narrow copy path for a view offset by
+    one element or 40-byte rows (D 20)."""
+    a = _args(B=2, S=8, H=4, KH=2, D=64, DV=64, dtype=torch.bfloat16)
+    assert plan(*a) == ("wgmma", 64, True, 2)
+    assert plan(*_args(B=2, S=8, H=4, KH=2, D=48, DV=32,
+                       dtype=torch.bfloat16)).vec16
+    assert not plan(*_args(B=2, S=8, H=4, KH=2, D=20, DV=20,
+                           dtype=torch.bfloat16)).vec16
+    buf = torch.zeros(a[0].numel() + 1, dtype=torch.bfloat16)
+    q1 = buf[1:].view(a[0].shape)
+    assert not plan(q1, a[1], a[2]).vec16
+    # the model layout (B, S, H, D) read as (B, H, S, D) strides: still rows
+    # of 128 bytes on the grid
+    assert plan(a[0].transpose(1, 2).contiguous().transpose(1, 2), a[1],
+                a[2]).vec16
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -192,15 +345,29 @@ def cuda_device():
 
 @pytest.mark.gpu
 def test_cuda_kernel_vs_plain_on_the_card(cuda_device):
+    """The reference's shapes at its tolerance, then the tensor-core
+    shapes (also as views one element into their storage, the narrow copy
+    path) within one bf16 step."""
     from repro_torch.kernels.flash_attention import launch_count
-    for case in sorted(SHAPES):
-        B, S, H, KH, D, DV, causal, window, dt = SHAPES[case]
-        t = [to_tensor(a, cuda_device)
-             for a in make_case(5, B, S, H, KH, D, DV, dt)]
+    cases = [(SHAPES[c], 0) + (TOL[SHAPES[c][-1]],) * 2
+             for c in sorted(SHAPES)]
+    cases += [(TC_SHAPES[c] + ("bf16",), off) + ONE_BF16_STEP
+              for c in sorted(TC_SHAPES) for off in (0, 1)]
+    for shape, offset, atol, rtol in cases:
+        B, S, H, KH, D, DV, causal, window, dt = shape
+        t = []
+        for a in make_case(5, B, S, H, KH, D, DV, dt):
+            x = to_tensor(a, cuda_device)
+            buf = torch.zeros(x.numel() + offset, dtype=x.dtype,
+                              device=cuda_device)
+            t.append(buf[offset:].view(x.shape).copy_(x))
+        assert plan(*t).instance == ("wgmma" if dt == "bf16"
+                                     else "cuda_core")
         before = launch_count()
         out = flash_attention(*t, causal=causal, window=window)
         torch.cuda.synchronize()
         assert launch_count() == before + 1
         ref = flash_attention_ref(*t, causal=causal, window=window)
-        np.testing.assert_allclose(as_np(out.cpu()), as_np(ref.cpu()),
-                                   rtol=TOL[dt], atol=TOL[dt], err_msg=case)
+        err = (out.float() - ref.float()).abs()
+        assert float((err - (atol + rtol * ref.float().abs())).max()) <= 0, \
+            (shape, offset)

@@ -47,7 +47,7 @@ from repro_torch.train.compress import (compress_grads, init_error_state,
 from repro_torch.train.loop import (SimulatedFailure, Trainer, TrainerConfig,
                                     make_grad_step, run_with_restarts)
 from repro_torch.train.optim import (OptConfig, adamw_update, init_opt_state,
-                                     lr_at, make_train_step)
+                                     lr_at, make_train_step, value_and_grad)
 
 CPU = "cpu"
 
@@ -266,14 +266,10 @@ def _close_to_leaf_scale(got, want, rel, name):
                                    err_msg=f"{name} {path}")
 
 
-def test_one_adamw_step_matches_jax(shared):
-    """Loss, grads, grad norm, lr and the updated params, m and v after one
-    clipped step, f32.  Grads, m and v agree to 1e-5 of each leaf's largest
-    value (measured: <= 1.6e-6).  The first AdamW step moves a weight by
-    lr·g/(|g| + eps): where |g| is within a few eps (1e-8) of 0 that size
-    rests on g's last bits, so params agree to 0.1·lr (measured: 0.04·lr,
-    in a handful of such weights; 1e-6 elsewhere)."""
+def _adamw_step_vs_jax(shared, remat: bool):
     jm, jp, tm, toks = shared
+    if remat:
+        tm = build(tm.cfg.replace(remat=True))
     oc = dict(lr=1e-3, warmup_steps=2, total_steps=20, grad_clip=0.5)
     jb = {"tokens": jnp.asarray(toks)}
     (jloss, _), jg = jax.value_and_grad(lambda p: jm.loss(p, jb),
@@ -282,8 +278,7 @@ def test_one_adamw_step_matches_jax(shared):
                                     JOptConfig(**oc))
     tp = _port_params(jp)
     tb = {"tokens": torch.from_numpy(toks)}
-    tg, (tloss, _) = torch.func.grad_and_value(lambda p: tm.loss(p, tb),
-                                               has_aux=True)(tp)
+    tg, (tloss, _) = value_and_grad(tm.loss, tp, tb)
     assert float(tloss) == pytest.approx(float(jloss), rel=1e-6)
     _close_to_leaf_scale(tg, jg, 1e-5, "grad")
     st = init_opt_state(tp)
@@ -301,6 +296,77 @@ def test_one_adamw_step_matches_jax(shared):
         np.testing.assert_allclose(t.numpy(), jnew_by[path], rtol=0,
                                    atol=0.1 * float(om["lr"]), err_msg=path)
         assert np.mean(np.abs(t.numpy() - jnew_by[path]) > 1e-6) < 1e-3
+
+
+def test_one_adamw_step_matches_jax(shared):
+    """Loss, grads, grad norm, lr and the updated params, m and v after one
+    clipped step, f32.  Grads, m and v agree to 1e-5 of each leaf's largest
+    value (measured: <= 1.6e-6).  The first AdamW step moves a weight by
+    lr·g/(|g| + eps): where |g| is within a few eps (1e-8) of 0 that size
+    rests on g's last bits, so params agree to 0.1·lr (measured: 0.04·lr,
+    in a handful of such weights; 1e-6 elsewhere)."""
+    _adamw_step_vs_jax(shared, remat=False)
+
+
+def test_one_adamw_step_with_remat_matches_jax(shared, monkeypatch):
+    """The same step with every layer rematerialised (``remat=True``, as
+    the reference's full-width configs train): the same numbers, and the
+    layers did go through ``torch.utils.checkpoint``."""
+    calls = []
+    real = torch.utils.checkpoint.checkpoint
+
+    def counting(fn, *args, **kw):
+        calls.append(fn.__name__)
+        return real(fn, *args, **kw)
+
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint", counting)
+    _adamw_step_vs_jax(shared, remat=True)
+    # the loss before the step, and make_train_step's step: one call per
+    # layer each
+    assert calls == ["layer_forward"] * (2 * shared[2].cfg.num_layers)
+
+
+def test_remat_gradients_equal_no_remat(small_model):
+    """Loss and every gradient with ``remat=True`` equal those with
+    ``remat=False`` to 1e-6 (reduced TinyLlama, f32; the recompute runs the
+    same ops on the same inputs), through the trainer's step on a batch of
+    8 x 32 tokens, and remat keeps only the layers' inputs: fewer tensors
+    saved for the backward pass."""
+    cfg, m = small_model
+    params = m.init(0, CPU)
+    batch = batches(cfg, "id", 1, 8, 32, seed=11, device=CPU)[0]
+    out, saved = {}, {}
+    for remat in (False, True):
+        mr = build(cfg.replace(remat=remat))
+        n = [0]
+
+        def pack(x):
+            n[0] += 1
+            return x
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+            out[remat] = value_and_grad(mr.loss, params, batch)
+        saved[remat] = n[0]
+    (g0, (l0, _)), (g1, (l1, _)) = out[False], out[True]
+    assert float(l1) == pytest.approx(float(l0), abs=1e-6)
+    for (path, a), (_, b) in zip(tree_paths(g0), tree_paths(g1)):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=0, atol=1e-6,
+                                   err_msg=path)
+    assert saved[True] < saved[False], saved
+
+
+def test_snip_on_a_remat_config_runs(small_model):
+    """The gradient criteria differentiate with ``torch.func``, which
+    refuses ``torch.utils.checkpoint``: on a ``remat=True`` config they run
+    without remat and prune the same units."""
+    cfg, _ = small_model
+    params = build(cfg).init(0, CPU)
+    gb = batches(cfg, "id", 1, 4, 16, seed=3, device=CPU)[0]
+    res = {r: prune_model(build(cfg.replace(remat=r)), params, 0.5,
+                          criterion="snip", grads_batch=gb)
+           for r in (False, True)}
+    assert res[True].pruned_units == res[False].pruned_units
+    assert res[True].cfg == res[False].cfg.replace(remat=True)
 
 
 def test_port_checkpoint_loads_in_jax_and_back(shared, tmp_path):
