@@ -10,13 +10,22 @@ nothing of JAX or of the JAX package.  Phases:
 
  1. environment: the card (name, power limit), torch / CUDA / nvcc versions;
  2. build of the kernel libraries from ``src/repro_torch/kernels/csrc``;
-    K2's instances with their registers and spills (``ptxas -v``) and the
-    count of tensor-core instructions in its SASS (``cuobjdump``);
- 3. the paged-attention kernel against its plain PyTorch version on the card
-    (decode and prefill at TinyLlama width, window, int8 / fp8 pools, a
-    pruned-looking shape, a poisoned null block), visit counts exact, and
-    its time beside the plain version, one library attention call and the
-    card's bound for the same work;
+    K1's and K2's instances with their registers and spills (``ptxas -v``)
+    and the count of tensor-core instructions in their SASS (``cuobjdump``);
+ 3. the paged-attention kernel K1 against its plain PyTorch version on the
+    card, each shape on the instance the wrapper plans (split-KV decode
+    and prefill on the tensor cores for bf16 q over a bf16 / int8 / fp8
+    pool, the CUDA cores otherwise): decode and prefill at TinyLlama
+    width, windows, int8 / fp8 pools, pruned-looking shapes, poisoned null
+    blocks, C*G off the 64-row grid, blocks of 4 and 8, D 256 / DV 200, one
+    2048-token sequence beside kv_len 0 and 1; visit counts exact and two
+    calls bitwise equal; then (3b) its time beside the plain version, three
+    ``scaled_dot_product_attention`` yardsticks (on the history gathered
+    and repeated to all heads; on the kv-heads with ``enable_gqa`` and on
+    the kv-heads with the query heads folded into rows, both with the keys
+    cut to the longest live length), in alternating rounds by the
+    profiler's device time per call, SM clock, power and temperature read
+    around each, and the card's bound;
  4. the main path at full width: ``tinyllama-1.1b`` (22 layers, bf16, random
     weights from a seed) served by ``repro_torch.serve.Engine``, checked by
     teacher forcing against ``Model.forward``, and its model steps against
@@ -79,7 +88,7 @@ is printed.  TF32 is off for matmuls and cuDNN throughout.
 ``--quick`` cuts phases 4, 7, 9 and 11 to 4 layers and a few requests or
 steps (for a first look at a new kernel); ``--profile`` adds a
 ``torch.profiler`` trace of one decode and one prefill step (device busy
-share, top kernels).  The default is the full run without the trace.
+share, K1's time per step, top kernels).  The default is the full run without the trace.
 """
 from __future__ import annotations
 
@@ -119,6 +128,9 @@ from repro_torch.kernels import ssd_scan as k3  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     ensure_built, expected_visits, launch_counts, paged_attention,
     paged_prefill_attention, quantize, reset_launches)
+from repro_torch.kernels.paged_attention import plan as k1_plan  # noqa: E402
+from repro_torch.kernels.paged_attention.paged_attention import (  # noqa: E402
+    sm_count as k1_sm_count)
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models.attention import _scatter_kv  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
@@ -235,21 +247,30 @@ def make_case(rng, *, B, C, H, KH, D, DV, bs, NB, q_dtype, pool, kv_lens,
     return case
 
 
-def run_pair(case, *, window=0, prefill=False):
-    """(kernel out, visits, plain out) for one case, synchronised."""
+def run_pair(case, *, window=0, prefill=False, repeat=False):
+    """(kernel out, visits, plain out) for one case, synchronised; with
+    ``repeat`` the kernel runs twice and must give the same bits."""
     kw = dict(window=window, k_scale=case["k_scale"], v_scale=case["v_scale"])
     if prefill:
         args = (case["q"], case["k"], case["v"], case["tables"],
                 case["q_starts"], case["kv_lens"])
-        out, visits = paged_prefill_attention(*args, return_visits=True, **kw)
-        torch.cuda.synchronize()
-        ref = paged_prefill_attention(*args, use_kernel=False, **kw)
+        fn = paged_prefill_attention
     else:
         args = (case["q"][:, 0], case["k"], case["v"], case["tables"],
                 case["kv_lens"])
-        out, visits = paged_attention(*args, return_visits=True, **kw)
+        fn = paged_attention
+    out, visits = fn(*args, return_visits=True, **kw)
+    torch.cuda.synchronize()
+    if repeat:
+        again, visits2 = fn(*args, return_visits=True, **kw)
         torch.cuda.synchronize()
-        ref = paged_attention(*args, use_kernel=False, **kw)
+        def bits(t):
+            return t.view(torch.int16 if t.element_size() == 2
+                          else torch.int32)
+        if not (torch.equal(bits(out), bits(again))
+                and torch.equal(visits, visits2)):
+            raise AssertionError("two calls on the same inputs differ")
+    ref = fn(*args, use_kernel=False, **kw)
     torch.cuda.synchronize()
     return out, visits, ref
 
@@ -257,7 +278,8 @@ def run_pair(case, *, window=0, prefill=False):
 def check_case(name, case, *, window=0, prefill=False, valid=None):
     """Compare on the rows that stand for real tokens; demand finite values
     everywhere (padded rows and idle sequences flow on through the model)."""
-    out, visits, ref = run_pair(case, window=window, prefill=prefill)
+    out, visits, ref = run_pair(case, window=window, prefill=prefill,
+                                repeat=True)
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"{name}: kernel produced non-finite values")
     B = out.shape[0]
@@ -284,19 +306,33 @@ def check_case(name, case, *, window=0, prefill=False, valid=None):
         raise AssertionError(f"{name}: visit counts differ from the "
                              f"liveness predicate")
     status = "ok" if over <= 0 else "FAIL"
-    print(f"  {name:34s} max_abs_err {max_err:.3e} (tol {tol_text(out.dtype)})"
-          f" visits {int(visits.sum())} {status}", flush=True)
+    q = case["q"] if prefill else case["q"][:, :1]
+    B_, C_, H_, D_ = q.shape
+    P_, bs_, KH_, DV_ = case["v"].shape
+    pl = k1_plan(B_, C_, H_, KH_, D_, DV_, bs_, case["tables"].shape[1],
+                 q.dtype, case["k"].dtype, k1_sm_count(q.device))
+    print(f"  {name:40s} [{k1_plan_text(pl)}] max_abs_err {max_err:.3e} "
+          f"(tol {tol_text(out.dtype)}) visits {int(visits.sum())} "
+          f"bitwise repeat {status}", flush=True)
     if over > 0:
         raise AssertionError(f"{name}: error exceeds {tol_text(out.dtype)} "
                              f"by {over} (max abs err {max_err})")
     return max_err
 
 
+def k1_plan_text(pl) -> str:
+    if pl.splits:
+        return f"{pl.instance} DV{pl.dv_tile} x{pl.splits}"
+    if pl.instance == "wgmma":
+        return f"wgmma DV{pl.dv_tile} wg{pl.warpgroups}"
+    return f"cuda_core DV{pl.dv_tile}"
+
+
 def ragged(rng, B, lo, hi):
     return rng.integers(lo, hi + 1, size=B).astype(np.int32)
 
 
-def phase_kernel_checks(rng) -> float:
+def phase_kernel_checks(rng, seed: int) -> float:
     print("phase 3: paged-attention kernel vs plain PyTorch version", flush=True)
     tl = dict(B=32, H=32, KH=4, D=64, DV=64, bs=16, NB=128)
     worst = 0.0
@@ -378,6 +414,74 @@ def phase_kernel_checks(rng) -> float:
                   kv_lens=[40, 128], q_starts=[37, 125])
     worst = max(worst, check_case("wide prefill D=256 DV=200", c,
                                   prefill=True, valid=[3, 3]))
+
+    # shapes that reach every instance of the Hopper design: tensor-core
+    # prefill with C*G off the 64-row grid, narrow pools under a window,
+    # small blocks, wide heads, pruned widths; split-KV decode of one long
+    # sequence beside kv_len 0 and 1 rows.  Their inputs come from a
+    # generator of their own, so the later phases draw what they drew
+    # before these shapes were added.
+    rng = np.random.default_rng([seed, 3])
+    for C_ in (9, 13):
+        st = (ragged(rng, 32, 0, 60) * 16).astype(np.int32)
+        va = ragged(rng, 32, 0, C_)
+        va[0], st[0] = 0, 0
+        c = make_case(rng, C=C_, q_dtype=torch.bfloat16, pool=torch.bfloat16,
+                      kv_lens=st + va, q_starts=st, poison_null=True, **tl)
+        worst = max(worst, check_case(f"prefill C={C_} bf16 null=1e4", c,
+                                      prefill=True, valid=va))
+    for pool, win in (("int8", 48), ("fp8_e4m3", 100)):
+        c = make_case(rng, C=32, q_dtype=torch.bfloat16, pool=pool,
+                      kv_lens=starts + valid, q_starts=starts,
+                      poison_null=True, **tl)
+        worst = max(worst, check_case(f"prefill C=32 {pool} window {win}", c,
+                                      prefill=True, valid=valid, window=win))
+    c = make_case(rng, C=32, q_dtype=torch.bfloat16, pool="fp8_e4m3",
+                  kv_lens=starts + valid, q_starts=starts, **tl)
+    worst = max(worst, check_case("prefill C=32 bf16 q, fp8 pool", c,
+                                  prefill=True, valid=valid))
+    for bs_, NB_ in ((4, 256), (8, 128)):
+        for pool in (torch.bfloat16, "int8"):
+            c = make_case(rng, C=32, q_dtype=torch.bfloat16, pool=pool,
+                          kv_lens=starts + valid, q_starts=starts,
+                          **dict(tl, bs=bs_, NB=NB_))
+            worst = max(worst, check_case(
+                f"prefill C=32 bs={bs_} {pool}".replace("torch.", ""), c,
+                prefill=True, valid=valid))
+        c = make_case(rng, C=1, q_dtype=torch.bfloat16, pool=torch.bfloat16,
+                      kv_lens=np.minimum(lens, NB_ * bs_),
+                      **dict(tl, bs=bs_, NB=NB_))
+        worst = max(worst, check_case(f"decode bs={bs_} bf16", c))
+    for pool in (torch.bfloat16, "int8", "fp8_e4m3"):
+        c = make_case(rng, C=9, q_dtype=torch.bfloat16, pool=pool,
+                      kv_lens=pst + pva, q_starts=pst, **pr)
+        worst = max(worst, check_case(
+            f"pruned prefill C=9 bf16 {pool} window 10"
+            .replace("torch.", ""), c, prefill=True, valid=pva, window=10))
+    c = make_case(rng, B=2, C=40, H=2, KH=1, D=256, DV=200, bs=8, NB=24,
+                  q_dtype=torch.bfloat16, pool=torch.bfloat16,
+                  kv_lens=[80, 190], q_starts=[40, 150])
+    worst = max(worst, check_case("wide prefill C=40 D=256 DV=200", c,
+                                  prefill=True, valid=[40, 40]))
+    c = make_case(rng, B=2, C=40, H=2, KH=1, D=256, DV=200, bs=8, NB=24,
+                  q_dtype=torch.bfloat16, pool="int8",
+                  kv_lens=[80, 190], q_starts=[40, 150])
+    worst = max(worst, check_case("wide prefill C=40 D=256 DV=200 int8", c,
+                                  prefill=True, valid=[40, 40]))
+    for dt, pool in ((torch.bfloat16, torch.bfloat16),
+                     (torch.bfloat16, "int8"), (torch.float32,
+                                                torch.float32)):
+        c = make_case(rng, B=3, C=1, H=32, KH=4, D=64, DV=64, bs=16, NB=128,
+                      q_dtype=dt, pool=pool, kv_lens=[2048, 0, 1],
+                      poison_null=True)
+        worst = max(worst, check_case(
+            f"decode 2048 | 0 | 1 {dt} q, {pool} pool"
+            .replace("torch.", ""), c))
+    c = make_case(rng, B=3, C=1, H=32, KH=4, D=64, DV=64, bs=16, NB=128,
+                  q_dtype=torch.bfloat16, pool=torch.bfloat16,
+                  kv_lens=[2048, 0, 1])
+    worst = max(worst, check_case("decode 2048 | 0 | 1 bf16 window 300", c,
+                                  window=300))
     return worst
 
 
@@ -420,10 +524,16 @@ def attention_work(case, *, prefill: bool):
     return kv_bytes + tbl_bytes + io_bytes, flops
 
 
-def time_kernel(name, rng, *, C, NB, prefill, iters):
-    """Time kernel, plain version and one library call at a main-path shape,
-    rotating over distinct pools so that each call finds the L2 cold, as a
-    layer of the model does."""
+def time_kernel(name, rng, *, C, NB, prefill, iters, rounds=6):
+    """K1, its plain version and one ``scaled_dot_product_attention`` call on
+    the gathered history (gathered outside the timed region: a yardstick
+    only) at a main-path shape, rotating over distinct pools so that each
+    call finds the L2 cold, as a layer of the model does.  K1 and SDPA take
+    turns over ``rounds`` rounds, each timed by the profiler's device time
+    per call (K1: its kernels added up, the decode instance's splits and
+    combine alike; SDPA: every kernel of the call) and by CUDA events, the
+    SM clock, power and temperature read around each round; plain, then
+    the rounds, then plain."""
     B, H, KH, D, bs = 32, 32, 4, 64, 16
     dt = torch.bfloat16
     if prefill:
@@ -450,10 +560,16 @@ def time_kernel(name, rng, *, C, NB, prefill, iters):
                                 c["kv_lens"], use_kernel=use_kernel)
         return fn
 
-    # library yardstick: one scaled_dot_product_attention call per rotation
-    lib = []
+    # library yardsticks, one scaled_dot_product_attention call each per
+    # rotation: "lib" on the whole table's history repeated to all H heads
+    # (it reads G times K1's K/V bytes); "gqa" on the KH heads with
+    # enable_gqa and the keys cut to the batch's longest live length; "fold"
+    # on the KH heads with the G heads folded into the query rows (r = c*G
+    # + g, as K1 takes them) and the keys cut alike — no K/V row repeated
+    G = H // KH
+    lib, gqa, fold = [], [], []
     for c in cases:
-        k, v = gathered_history(c, H // KH)
+        k, v = gathered_history(c, G)
         S = k.shape[2]
         idx = torch.arange(S, device=DEV)[None, None, :]
         if prefill:
@@ -462,12 +578,25 @@ def time_kernel(name, rng, *, C, NB, prefill, iters):
             mask = (idx <= qpos) & (idx < c["kv_lens"][:, None, None])
         else:
             mask = (idx < c["kv_lens"][:, None, None])
-        lib.append((c["q"].permute(0, 2, 1, 3).contiguous(), k, v,
-                    mask[:, None].contiguous()))
+        qh = c["q"].permute(0, 2, 1, 3).contiguous()
+        lib.append((qh, k, v, mask[:, None].contiguous(), {}))
+        live = int(c["kv_lens"].max())
+        k, v = gathered_history(c, 1)
+        k, v = k[:, :, :live].contiguous(), v[:, :, :live].contiguous()
+        mask = mask[:, None, :, :live].contiguous()
+        gqa.append((qh, k, v, mask, {"enable_gqa": True}))
+        qf = c["q"].reshape(B, C, KH, G, D).permute(0, 2, 1, 3, 4).reshape(
+            B, KH, C * G, D).contiguous()
+        fold.append((qf, k, v, mask.repeat_interleave(G, dim=2), {}))
 
-    def lib_fn(i):
-        q, k, v, mask = lib[i % n_rot]
-        F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    def sdpa(tensors):
+        def fn(i):
+            q, k, v, mask, kw = tensors[i % n_rot]
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  **kw)
+        return fn
+
+    lib_fn, gqa_fn, fold_fn = sdpa(lib), sdpa(gqa), sdpa(fold)
 
     out, _, ref = run_pair(cases[0], prefill=prefill)
     err = (out.float() - ref.float()).abs()
@@ -475,31 +604,103 @@ def time_kernel(name, rng, *, C, NB, prefill, iters):
     if excess_over_tol(err, ref) > 0:
         raise AssertionError(f"{name}: max abs err {max_err} exceeds "
                              f"{tol_text(dt)}")
-    # order: plain, kernel, kernel, plain (the two kernel runs are averaged)
-    plain_a = time_ms(call(False), iters=max(iters // 4, 3))
-    kern_a = time_ms(call(True), iters=iters)
-    kern_b = time_ms(call(True), iters=iters)
-    plain_b = time_ms(call(False), iters=max(iters // 4, 3))
-    library = time_ms(lib_fn, iters=iters)
+    # the yardsticks compute K1's function: their distance from the plain
+    # version on rotation 0, in (B, C, H, DV)
+    yard_diff = {
+        "library": lib_fn(0).permute(0, 2, 1, 3),
+        "library_gqa": gqa_fn(0).permute(0, 2, 1, 3),
+        "library_fold": fold_fn(0).reshape(B, KH, C, G, D).permute(
+            0, 2, 1, 3, 4).reshape(B, C, H, D)}
+    yard_diff = {n: float((y.float() - ref.reshape(B, C, H, D).float()
+                           ).abs().max()) for n, y in yard_diff.items()}
+    kern, plain = call(True), call(False)
+    plain_a = time_ms(plain, iters=max(iters // 4, 3))
+    rounds_ = []
+    for _ in range(rounds):
+        before = gpu_clocks()
+        kp = device_profile(kern, iters, "paged_attention")
+        lp = device_profile(lib_fn, iters)
+        gp = device_profile(gqa_fn, iters)
+        fp = device_profile(fold_fn, iters)
+        rounds_.append({
+            "k1_device_ms": None if kp is None else kp["ms"],
+            "k1_kernels_per_call": None if kp is None
+            else kp["kernels_per_call"],
+            "k1_events_per_call": None if kp is None
+            else kp["events_per_call"],
+            "library_device_ms": None if lp is None else lp["ms"],
+            "library_gqa_device_ms": None if gp is None else gp["ms"],
+            "library_fold_device_ms": None if fp is None else fp["ms"],
+            "k1_event_ms": time_ms(kern, iters=iters),
+            "library_event_ms": time_ms(lib_fn, iters=iters),
+            "before": before, "after": gpu_clocks()})
+    plain_b = time_ms(plain, iters=max(iters // 4, 3))
+    measured = all(x["k1_device_ms"] is not None
+                   and x["library_device_ms"] is not None for x in rounds_)
+    key_k, key_l = (("k1_device_ms", "library_device_ms") if measured
+                    else ("k1_event_ms", "library_event_ms"))
+    k_ms = [x[key_k] for x in rounds_]
+    l_ms = [x[key_l] for x in rounds_]
+    kern_ms, lib_ms = float(np.median(k_ms)), float(np.median(l_ms))
+
+    def median_of(key):
+        xs = [x[key] for x in rounds_]
+        return None if None in xs else float(np.median(xs))
     nbytes, flops = attention_work(cases[0], prefill=prefill)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / PEAK_FLOPS[dt] * 1e3
+    bound = max(t_bytes, t_flops)
+    q0 = cases[0]["q"]
+    pl = k1_plan(B, C, H, KH, D, D, bs, NB, dt, dt, k1_sm_count(q0.device))
     entry = {
         "name": name, "route": "cuda", "source": K1_SOURCE,
         "replaces": K1_REPLACES, "launches": 0, "max_abs_err": max_err,
-        "ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
-        "bound_ms": max(t_bytes, t_flops),
+        "ms": kern_ms, "plain_ms": (plain_a + plain_b) / 2,
+        "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-        "library_ms": library,
+        "library_ms": lib_ms,
+        "library_gqa_ms": median_of("library_gqa_device_ms"),
+        "library_fold_ms": median_of("library_fold_device_ms"),
+        "yardstick_max_abs_diff": yard_diff,
+        "timing": ("profiler device time per call, median of rounds"
+                   if measured else "CUDA events (device time not "
+                   "measured), median of rounds"),
+        "instance": k1_plan_text(pl), "share_of_bound": bound / kern_ms,
+        "event_ms": float(np.median([x["k1_event_ms"] for x in rounds_])),
+        "library_event_ms": float(np.median([x["library_event_ms"]
+                                             for x in rounds_])),
         "shape": {"B": B, "C": C, "H": H, "KH": KH, "D": D, "bs": bs,
                   "NB": NB, "dtype": "bfloat16",
                   "mean_kv_len": float(np.mean(lens))},
-        "bytes": nbytes, "flops": flops,
+        "bytes": nbytes, "flops": flops, "rounds": rounds_,
     }
-    print(f"  {name}: kernel {entry['ms']:.4f} ms | plain "
-          f"{entry['plain_ms']:.4f} ms | library {library:.4f} ms | bound "
-          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})", flush=True)
-    del cases, lib
+    print(f"  {name} [{entry['instance']}], {rounds} alternating rounds of "
+          f"{iters} calls:", flush=True)
+    for i, x in enumerate(rounds_):
+        b_, a_ = x["before"], x["after"]
+        dk = ("not measured" if x["k1_device_ms"] is None
+              else f"{x['k1_device_ms']:.4f}")
+        dl, dg, df = ("not measured" if x[k] is None else f"{x[k]:.4f}"
+                      for k in ("library_device_ms", "library_gqa_device_ms",
+                                "library_fold_device_ms"))
+        print(f"    round {i}: device K1 {dk} ms | SDPA {dl} ms, GQA {dg} "
+              f"ms, folded {df} ms; events K1 "
+              f"{x['k1_event_ms']:.4f} | SDPA {x['library_event_ms']:.4f} "
+              f"ms | SM clock {b_['sm_mhz']:.0f} -> {a_['sm_mhz']:.0f} MHz "
+              f"(max {b_['max_sm_mhz']:.0f}), power {b_['power_w']:.0f} -> "
+              f"{a_['power_w']:.0f} W, {b_['temp_c']:.0f} -> "
+              f"{a_['temp_c']:.0f} C", flush=True)
+    print(f"  {name}: K1 {spread(k_ms)} | SDPA {spread(l_ms)} "
+          f"({entry['timing']}) | plain {entry['plain_ms']:.4f} ms | bound "
+          f"{bound:.5f} ms ({entry['bound_by']}: {nbytes / 1e6:.2f} MB at "
+          f"3.35 TB/s = {t_bytes:.5f} ms; {flops / 1e9:.3f} GFLOP at 989 "
+          f"TFLOP/s = {t_flops:.5f} ms) -> {100 * entry['share_of_bound']:.1f}"
+          f" % of bound | max abs err {max_err:.2e}", flush=True)
+    print(f"  {name}: SDPA on the KH heads, keys cut to the longest live "
+          f"length: GQA {entry['library_gqa_ms']} ms, folded "
+          f"{entry['library_fold_ms']} ms (device, median of rounds); "
+          f"yardsticks' max abs diff from plain {yard_diff}", flush=True)
+    del cases, lib, gqa, fold
     torch.cuda.empty_cache()
     return entry
 
@@ -809,9 +1010,12 @@ def profile_step(fn, iters: int) -> dict:
               flush=True)
         return {"measured": False}
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
+    k1_us = sum(e.self_device_time_total for e in evs
+                if "paged_attention" in e.key)
     out = {"measured": True, "iters": iters, "wall_ms_per_call":
            wall_us / iters / 1e3, "device_busy_ms_per_call":
            busy_us / iters / 1e3, "device_idle_share": 1 - busy_us / wall_us,
+           "k1_ms_per_call": k1_us / iters / 1e3,
            "kernel_launches_per_call": sum(e.count for e in evs) / iters,
            "top_kernels": [{"name": e.key[:60], "ms_per_call":
                             e.self_device_time_total / iters / 1e3,
@@ -820,8 +1024,8 @@ def profile_step(fn, iters: int) -> dict:
     print(f"  profile: wall {out['wall_ms_per_call']:.2f} ms/call, device "
           f"busy {out['device_busy_ms_per_call']:.2f} ms/call, idle share "
           f"{out['device_idle_share']:.3f}, "
-          f"{out['kernel_launches_per_call']:.0f} kernel launches/call",
-          flush=True)
+          f"{out['kernel_launches_per_call']:.0f} kernel launches/call, K1 "
+          f"{out['k1_ms_per_call']:.3f} ms/call", flush=True)
     for k in out["top_kernels"]:
         print(f"    {k['ms_per_call']:8.3f} ms x{k['launches_per_call']:6.1f}"
               f"  {k['name']}", flush=True)
@@ -943,23 +1147,45 @@ def phase_k4_checks() -> float:
     return worst
 
 
-def kernel_device_ms(fn, name: str, iters: int) -> float | None:
-    """Device time per launch of the kernels whose name holds ``name``,
-    from a CUPTI trace of ``iters`` calls of ``fn(i)`` (None when the trace
-    shows no device time: not measured)."""
+def device_profile(fn, iters: int, name: str | None = None,
+                   tries: int = 3) -> dict | None:
+    """Device time per call of ``fn(i)`` from a CUPTI trace of ``iters``
+    calls: for every kernel whose name holds ``name`` (every device kernel
+    when None), its mean time per launch times its launches per call, added
+    up (a call may launch several kernels: K1's decode launches its splits
+    and their combine).  Means per launch, not sums over the trace divided
+    by the calls, because a trace of a long run was seen to lose about a
+    third of its events.  ``events_per_call`` says what the trace kept.  A
+    trace with no device time is taken again, up to ``tries`` times; None:
+    not measured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(i)
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA and name in e.key]
-    n = sum(e.count for e in evs)
-    us = sum(e.self_device_time_total for e in evs)
-    return us / n / 1e3 if n and us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(i)
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count
+               and e.self_device_time_total > 0
+               and (name is None or name in e.key)]
+        if evs:
+            per_call = {e.key: max(1, round(e.count / iters)) for e in evs}
+            us = sum(e.self_device_time_total / e.count * per_call[e.key]
+                     for e in evs)
+            return {"ms": us / 1e3,
+                    "kernels_per_call": sum(per_call.values()),
+                    "events_per_call": sum(e.count for e in evs) / iters}
+    return None
+
+
+def kernel_device_ms(fn, name: str, iters: int) -> float | None:
+    """Device time per call of the kernels whose name holds ``name`` (see
+    ``device_profile``; None: not measured)."""
+    prof = device_profile(fn, iters, name)
+    return None if prof is None else prof["ms"]
 
 
 def inblock_work(R: int, mask) -> tuple[int, int]:
@@ -1730,14 +1956,18 @@ def ptxas_kernels(log: str) -> list[dict]:
     out: list[dict] = []
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
-            out.append({"name": ln.split("'")[1], "registers": None,
-                        "spill_bytes": None, "warnings": []})
+            out.append({"name": ln.split("'")[1],
+                        "mangled": ln.split("'")[1], "registers": None,
+                        "spill_bytes": None, "stack_bytes": None,
+                        "warnings": []})
         elif not out:
             continue
         elif "spill stores" in ln:
             w = ln.replace(",", " ").split()
             out[-1]["spill_bytes"] = (int(w[w.index("spill") - 2])
                                       + int(w[w.index("loads") - 3]))
+            if "stack" in w:
+                out[-1]["stack_bytes"] = int(w[w.index("stack") - 2])
         elif "Used " in ln and " registers" in ln:
             out[-1]["registers"] = int(ln.split("Used ")[1].split()[0])
         elif "warning" in ln.lower():
@@ -1751,21 +1981,15 @@ def ptxas_kernels(log: str) -> list[dict]:
     return out
 
 
-def k2_build_report() -> dict:
-    """K2's instances as ptxas built them (registers, spills) and, where
-    ``cuobjdump`` exists, the count of tensor-core instructions (HGMMA:
-    wgmma; HMMA: mma.sync) in the library."""
-    lib = _build.library_path("flash_attention")
+def build_report(name: str, label: str) -> dict:
+    """A kernel library's instances as ptxas built them (registers, spills,
+    stack) and, where ``cuobjdump`` exists, the count of tensor-core
+    instructions (HGMMA: wgmma; HMMA: mma.sync) in its SASS, per instance
+    and in all."""
+    lib = _build.library_path(name)
     log = lib.with_suffix(".log")
     kernels = ptxas_kernels(log.read_text()) if log.exists() else []
-    for k in kernels:
-        print(f"  K2 {k['name']}: {k['registers']} registers, "
-              f"{k['spill_bytes']} bytes spilled"
-              + "".join(f"\n      {w}" for w in k["warnings"]), flush=True)
-    if not kernels:
-        print("  K2 ptxas log: not found (library built by an earlier run)",
-              flush=True)
-    sass = {}
+    sass, per_fn = {}, {}
     dump = shutil.which("cuobjdump") or (
         str(Path(_build.find_nvcc()).parent / "cuobjdump"))
     if Path(dump).exists():
@@ -1773,13 +1997,41 @@ def k2_build_report() -> dict:
                               text=True).stdout
         sass = {op: len(re.findall(rf"\b{op}\.", text))
                 for op in ("HGMMA", "HMMA")}
-        print(f"  K2 SASS ({Path(dump).name}): {sass['HGMMA']} HGMMA "
+        # per function: "Function : <mangled name>" opens its code
+        parts = re.split(r"Function : (\S+)", text)
+        per_fn = {name: {op: len(re.findall(rf"\b{op}\.", body))
+                         for op in ("HGMMA", "HMMA")}
+                  for name, body in zip(parts[1::2], parts[2::2])}
+    for k in kernels:
+        k["sass"] = per_fn.get(k["mangled"])
+        ops = ("" if k["sass"] is None else
+               f", {k['sass']['HGMMA']} HGMMA, {k['sass']['HMMA']} HMMA")
+        print(f"  {label} {k['name']}: {k['registers']} registers, "
+              f"{k['spill_bytes']} bytes spilled, {k['stack_bytes']} bytes "
+              f"of stack{ops}"
+              + "".join(f"\n      {w}" for w in k["warnings"]), flush=True)
+    if not kernels:
+        print(f"  {label} ptxas log: not found (library built by an earlier "
+              f"run)", flush=True)
+    if sass:
+        print(f"  {label} SASS ({Path(dump).name}): {sass['HGMMA']} HGMMA "
               f"(wgmma), {sass['HMMA']} HMMA (mma.sync) instructions",
               flush=True)
     else:
         print("  cuobjdump: not on this machine, SASS not counted",
               flush=True)
     return {"kernels": kernels, "sass": sass}
+
+
+def build_summary(report: dict) -> dict:
+    """A library's build in a few numbers, for the kernels line (the
+    instance by instance report goes on a line of its own)."""
+    ks = report["kernels"]
+    regs = [k["registers"] for k in ks if k["registers"] is not None]
+    return {"instances": len(ks),
+            "registers": [min(regs), max(regs)] if regs else None,
+            "with_spills": [k["name"] for k in ks if k["spill_bytes"]],
+            "sass": report["sass"]}
 
 
 def live_pairs(Sq: int, Sk: int, causal: bool, window: int) -> int:
@@ -2280,9 +2532,12 @@ def main() -> int:
                   f"{min(regs)}-{max(regs)}, "
                   f"{sum(bool(k['spill_bytes']) for k in ks)} with spills",
                   flush=True)
-    k2_build = k2_build_report()
+    k1_build = build_report("paged_attention", "K1")
+    if k1_build["sass"] and not k1_build["sass"]["HGMMA"]:
+        raise AssertionError("K1's SASS holds no HGMMA (wgmma) instruction")
+    k2_build = build_report("flash_attention", "K2")
 
-    worst = phase_kernel_checks(rng)
+    worst = phase_kernel_checks(rng, args.seed)
     print("phase 3b: kernel times at the main path's shapes (bf16)",
           flush=True)
     kernels = [
@@ -2297,6 +2552,7 @@ def main() -> int:
     main_res = phase_main_path(rng, args.quick, args.profile)
     kernels[0]["launches"] = main_res["k1_launches"]["decode"]
     kernels[1]["launches"] = main_res["k1_launches"]["prefill"]
+    kernels[0]["build"] = kernels[1]["build"] = build_summary(k1_build)
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], worst)
     dev_res = phase_device_code(rng)
@@ -2314,7 +2570,7 @@ def main() -> int:
     k2_err = phase_k2_checks()
     print("phase 10b: K2 time at the main path's shape", flush=True)
     k2_entry = time_k2()
-    k2_entry["build"] = k2_build
+    k2_entry["build"] = build_summary(k2_build)
     any_res = phase_any_time(args.quick, args.seed)
     k2_entry["launches"] = any_res["k2_launches"]
     k2_entry["launches_teacher_forcing"] = {
@@ -2327,6 +2583,8 @@ def main() -> int:
             raise AssertionError(f"{k['name']} was never launched by its "
                                  f"path")
 
+    print(json.dumps({"builds": {"paged_attention": k1_build,
+                                 "flash_attention": k2_build}}))
     print(json.dumps({"main_path": main_res}))
     print(json.dumps({"device_code_ms": dev_res}))
     print(json.dumps({"prune_path": prune_res, "k4_sweep": k4_sweep}))

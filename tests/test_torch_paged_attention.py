@@ -330,16 +330,100 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (entry, q dtype, pool, case kwargs, valid rows per sequence, window):
+# every instance the wrapper plans — split-KV decode and prefill on the
+# tensor cores, the CUDA-core instance at prefill and decode — at f32 and
+# bf16, bf16 / int8 / fp8 pools
+CARD_CASES = [
+    ("prefill", "float32", "float32",
+     dict(B=4, C=6, H=8, KH=2, D=24, DV=40, bs=4, NB=10,
+          kv_lens=[6, 8, 16, 25], q_starts=[0, 8, 13, 20]), [6, 0, 3, 5], 0),
+    ("prefill", "bfloat16", "bfloat16",
+     dict(B=3, C=20, H=8, KH=1, D=64, DV=64, bs=16, NB=8,
+          kv_lens=[0, 70, 120], q_starts=[0, 50, 100], null_fill=1e4),
+     [0, 20, 20], 0),
+    ("prefill", "bfloat16", "int8",
+     dict(B=2, C=9, H=6, KH=2, D=48, DV=40, bs=4, NB=24,
+          kv_lens=[9, 80], q_starts=[0, 71]), [9, 9], 10),
+    ("prefill", "bfloat16", "fp8_e4m3",
+     dict(B=2, C=40, H=2, KH=1, D=256, DV=200, bs=8, NB=24,
+          kv_lens=[80, 190], q_starts=[40, 150]), [40, 40], 0),
+    ("decode", "bfloat16", "bfloat16",
+     dict(B=3, C=1, H=32, KH=4, D=64, DV=64, bs=16, NB=128,
+          kv_lens=[2048, 0, 1], null_fill=1e4), None, 0),
+    ("decode", "float32", "int8",
+     dict(B=4, C=1, H=8, KH=2, D=16, DV=16, bs=4, NB=8,
+          kv_lens=[1, 7, 20, 32]), None, 5),
+]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _card_case(seed, device, *, q_dtype, pool, B, C, H, KH, D, DV, bs, NB,
+               kv_lens, q_starts=None, null_fill=0.0):
+    """``make_case``'s pools, tables and queries built with torch alone (the
+    port's ``quantize``), so that the card needs no JAX for them."""
+    rng = np.random.default_rng(seed)
+    P = B * NB + 1
+    k = torch.from_numpy(rng.standard_normal((P, bs, KH, D), np.float32))
+    v = torch.from_numpy(rng.standard_normal((P, bs, KH, DV), np.float32))
+    k[0], v[0] = null_fill, -null_fill
+    tables = rng.permutation(np.arange(1, P)).reshape(B, NB).astype(np.int32)
+    lens = np.asarray(kv_lens, np.int32)
+    live = (np.arange(NB)[None] * bs) < lens[:, None]
+    t = {"q": torch.from_numpy(rng.standard_normal((B, C, H, D), np.float32)
+                               ).to(getattr(torch, q_dtype)),
+         "tables": torch.from_numpy(np.where(live, tables, 0).astype(
+             np.int32)), "kv_lens": torch.from_numpy(lens),
+         "q_starts": torch.from_numpy(np.asarray(
+             lens - 1 if q_starts is None else q_starts, np.int32)),
+         "k_scale": None, "v_scale": None}
+    if pool in T_DTYPE:
+        t["k"], t["k_scale"] = quantize(k, T_DTYPE[pool])
+        t["v"], t["v_scale"] = quantize(v, T_DTYPE[pool])
+    else:
+        t["k"], t["v"] = k.to(getattr(torch, pool)), v.to(getattr(torch, pool))
+    return {n: None if x is None else x.to(device) for n, x in t.items()}
+
+
 @pytest.mark.gpu
 def test_cuda_kernel_vs_plain_on_the_card(cuda_device):
-    _, t = make_case(19, B=4, C=6, H=8, KH=2, D=24, DV=40, bs=4, NB=10,
-                     kv_lens=[6, 8, 16, 25], q_starts=[0, 8, 13, 20])
-    t = {k: (v.to(cuda_device) if v is not None else None)
-         for k, v in t.items()}
-    args = (t["q"], t["k"], t["v"], t["tables"], t["q_starts"], t["kv_lens"])
-    out, visits = paged_prefill_attention(*args, return_visits=True)
-    ref = paged_prefill_attention(*args, use_kernel=False)
-    rows = torch.from_numpy(_real_rows([6, 0, 3, 5], 6)).to(cuda_device)
-    assert float((out - ref)[rows].abs().max()) < ATOL
-    want = expected_visits(t["q_starts"].cpu(), t["kv_lens"].cpu(), 10, 4)
-    assert torch.equal(visits.cpu(), want[:, None].expand(-1, 2))
+    """Each instance against the plain version: 1e-5 in f32, one bf16 step
+    (``2e-4 + 2^-7·|plain|``) in bf16, on the rows that stand for real
+    tokens; visit counts exact; a second call bitwise equal; kv_len 0 rows
+    are 0."""
+    from repro_torch.kernels.paged_attention import plan
+    seen = set()
+    for i, (entry, qd, pool, kw, valid, window) in enumerate(CARD_CASES):
+        t = _card_case(19 + i, cuda_device, q_dtype=qd, pool=pool, **kw)
+        sc = _scales(t)
+        if entry == "prefill":
+            args = (t["q"], t["k"], t["v"], t["tables"], t["q_starts"],
+                    t["kv_lens"])
+            fn, starts = paged_prefill_attention, t["q_starts"]
+        else:
+            args = (t["q"][:, 0], t["k"], t["v"], t["tables"], t["kv_lens"])
+            fn, starts = paged_attention, t["kv_lens"] - 1
+        B, C, H, D = t["q"].shape
+        _, bs, KH, DV = t["v"].shape
+        seen.add(plan(B, C, H, KH, D, DV, bs, t["tables"].shape[1],
+                      t["q"].dtype, t["k"].dtype).instance)
+        out, visits = fn(*args, window=window, return_visits=True, **sc)
+        again = fn(*args, window=window, **sc)
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(out), _bits(again))
+        ref = fn(*args, window=window, use_kernel=False, **sc)
+        rows = (torch.from_numpy(_real_rows(valid, C)).to(cuda_device)
+                if entry == "prefill" else t["kv_lens"] > 0)
+        atol, rtol = (ATOL, 0.0) if qd == "float32" else (2e-4, 2.0 ** -7)
+        err = (out.float() - ref.float()).abs()[rows]
+        assert float((err - atol - rtol * ref.float().abs()[rows]).max()) \
+            <= 0, (entry, qd, pool)
+        idle = t["kv_lens"] == 0
+        assert not out[idle].float().abs().any()
+        want = expected_visits(starts.cpu(), t["kv_lens"].cpu(),
+                               t["tables"].shape[1], bs, window)
+        assert torch.equal(visits.cpu(), want[:, None].expand(-1, KH))
+    assert seen == {"split_kv_mma", "wgmma", "cuda_core"}
