@@ -10,8 +10,9 @@ nothing of JAX or of the JAX package.  Phases:
 
  1. environment: the card (name, power limit), torch / CUDA / nvcc versions;
  2. build of the kernel libraries from ``src/repro_torch/kernels/csrc``;
-    K1's and K2's instances with their registers and spills (``ptxas -v``)
-    and the count of tensor-core instructions in their SASS (``cuobjdump``);
+    K1's, K2's and K3's instances with their registers, spills and stack
+    (``ptxas -v``) and the count of tensor-core instructions in their SASS
+    (``cuobjdump``);
  3. the paged-attention kernel K1 against its plain PyTorch version on the
     card, each shape on the instance the wrapper plans (split-KV decode
     and prefill on the tensor cores for bf16 q over a bf16 / int8 / fp8
@@ -43,9 +44,12 @@ nothing of JAX or of the JAX package.  Phases:
     checked by teacher forcing against its own ``Model.forward``;
  8. the SSD chunked-scan kernel K3 against its plain PyTorch version and a
     float64 run of it (the reference's four test shapes, full-width and
-    pruned Mamba-2 shapes with x f32 and B/C bf16, a large-dt case whose
-    exp above the diagonal would overflow), and its time beside the plain
-    version and the card's bound;
+    pruned Mamba-2 shapes with x f32 and B/C bf16, the float32 model's
+    full width, an odd pruned width, a large-dt case whose exp above the
+    diagonal would overflow), each call counted once and repeated bitwise;
+    then (8b) its time at the full-width and pruned shapes beside the plain
+    version and two bounds (the f32 CUDA cores', and the tensor cores' for
+    the split-TF32 passes);
  9. the main path of the ssm family at full width: ``mamba2-1.3b`` (48
     layers, d 2048, 64 SSM heads x 64, state 128, bf16, random weights from
     a seed) — ``Model.forward`` on K3 against the plain scan, 16 requests
@@ -144,6 +148,7 @@ from repro_torch.train.optim import OptConfig  # noqa: E402
 # Published peaks of one H100 SXM (NVIDIA data sheet, dense rates)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+PEAK_TF32 = 495e12
 
 # Tolerances of kernel vs plain version, err <= atol + rtol * |plain|.  Both
 # sides accumulate in f32, so f32 outputs differ only in summation order (up
@@ -1401,9 +1406,11 @@ def phase_prune_path(rng, quick: bool) -> dict:
 
 # the full-width shape and the 50 %-pruned one (SPA at ratio 0.5 halves the
 # SSM heads, their head_dim and the state; phase 9 checks that infer_config
-# gives these): x f32 (dt applied in f32), B/C in the bf16 model dtype
+# gives these): x f32 (dt applied in f32), B/C in the bf16 model dtype; and
+# the same cut by 37.5 %, whose p 40 the kernel pads to 48
 K3_FULL = dict(b=4, l=1024, h=64, p=64, n=128, Q=128)
 K3_PRUNED = dict(b=4, l=1024, h=32, p=32, n=64, Q=128)
+K3_PRUNED_ODD = dict(b=4, l=1024, h=40, p=40, n=80, Q=128)
 
 
 def ssd_case(seed, b, l, h, p, n, x_dtype, bc_dtype, dt_lo=0.05,
@@ -1432,20 +1439,27 @@ def ssd_rel(a, b) -> float:
 def check_ssd(name, Q, args) -> float:
     """K3 against the plain version (f32, same card) at the reference's
     tolerance, and both against the plain version run in float64 on the
-    same inputs, so that a miss says which side errs."""
-    y = k3.ssd_scan(*args, Q)
+    same inputs, so that a miss says which side errs; the call is made
+    twice, must launch the kernel once each time and give the same bits."""
+    before = k3.launch_count()
+    y, again = k3.ssd_scan(*args, Q), k3.ssd_scan(*args, Q)
     torch.cuda.synchronize()
+    calls = k3.launch_count() - before
+    same = torch.equal(y, again)
     plain = k3.ssd_scan_ref(*args, Q)
     gold = ssd_reference(*[t.double() for t in args], Q)[0]
     tol = K3_TOL[args[0].dtype]         # y comes back in x's dtype
     e_plain, e_gold = ssd_rel(y, plain), ssd_rel(y, gold)
     e_pg = ssd_rel(plain, gold)
-    ok = e_plain < tol and e_gold < tol and bool(torch.isfinite(y).all())
-    print(f"  {name:44s} rel err vs plain {e_plain:.2e}, vs float64 "
-          f"{e_gold:.2e} (plain vs float64 {e_pg:.2e}; tol {tol:g}) "
+    ok = (e_plain < tol and e_gold < tol and bool(torch.isfinite(y).all())
+          and same and calls == 2)
+    print(f"  {name:46s} rel err vs plain {e_plain:.2e}, vs float64 "
+          f"{e_gold:.2e} (plain vs float64 {e_pg:.2e}; tol {tol:g}); "
+          f"bitwise repeat {'yes' if same else 'NO'}, launches {calls}/2 "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise AssertionError(f"K3 {name}: rel err {e_plain} / {e_gold}")
+        raise AssertionError(f"K3 {name}: rel err {e_plain} / {e_gold}, "
+                             f"repeat equal {same}, launches {calls}")
     return max(e_plain, e_gold)
 
 
@@ -1467,10 +1481,26 @@ def phase_k3_checks() -> float:
         worst = max(worst, check_ssd(
             f"{label} {tuple(d.values())} Q={Q} x f32, B/C bf16", Q,
             ssd_case(210, **d, x_dtype=f32, bc_dtype=bf16)))
-    # dt in [1, 4] with A down to -16: dt·|A|·Q reaches 8192, so exp above
-    # the diagonal would overflow; the kernel must select it away
     d = dict(K3_FULL, b=2, l=512)
     Q = d.pop("Q")
+    # phase 9's float32 model: B and C split too
+    worst = max(worst, check_ssd(
+        f"full width {tuple(d.values())} all f32", Q,
+        ssd_case(212, **d, x_dtype=f32, bc_dtype=f32)))
+    # widths another pruning ratio leaves: 16-byte rows (p 40, n 48), and
+    # rows off the 16-byte grid (p 11, n 13), copied element by element
+    worst = max(worst, check_ssd(
+        "odd width (2, 512, 8, 40, 48) Q=128 x f32, B/C bf16", 128,
+        ssd_case(213, 2, 512, 8, 40, 48, x_dtype=f32, bc_dtype=bf16)))
+    worst = max(worst, check_ssd(
+        "odd width (1, 256, 4, 11, 13) Q=64 bf16", 64,
+        ssd_case(214, 1, 256, 4, 11, 13, x_dtype=bf16, bc_dtype=bf16)))
+    # a head of 128: two items a warp, so C is read after M is whole
+    worst = max(worst, check_ssd(
+        "wide head (1, 256, 4, 128, 64) Q=128 x f32, B/C bf16", 128,
+        ssd_case(215, 1, 256, 4, 128, 64, x_dtype=f32, bc_dtype=bf16)))
+    # dt in [1, 4] with A down to -16: dt·|A|·Q reaches 8192, so exp above
+    # the diagonal would overflow; the kernel must select it away
     worst = max(worst, check_ssd(
         f"large dt (dt 1..4, A -1..-16, Q={Q}), finite", Q,
         ssd_case(220, **d, x_dtype=f32, bc_dtype=bf16, dt_lo=1.0,
@@ -1478,76 +1508,113 @@ def phase_k3_checks() -> float:
     return worst
 
 
-def ssd_work(b, l, h, p, n, Q, x_dtype, bc_dtype
-             ) -> tuple[int, int, int, float]:
-    """(bytes, C Bᵀ flops, per-head flops, least seconds of arithmetic) of
-    one scan.  Bytes: x read and y written once, dt, A, B, C read once.
-    Operations, over the lower triangle i >= j only (above it M is 0 by
-    definition): C Bᵀ once per (batch, chunk) — B and C carry no head axis —
-    at the peak of B/C's type; per (batch, head, chunk) M x, C stateᵀ and
-    the state update, which take the f32 x or the f32 state, at the f32
-    CUDA-core peak."""
+def ssd_work(b, l, h, p, n, rows, x_dtype, bc_dtype) -> dict:
+    """Bytes and operations of one scan taken ``rows`` rows at a time, and
+    the least times they allow.  Bytes: x read and y written once, dt, A,
+    B, C read once.  Operations, over the lower triangle i >= j of each
+    piece of ``rows`` only (above it M is 0 by definition): C Bᵀ once per
+    (batch, piece) — B and C carry no head axis — and per (batch, head,
+    piece) M x, C stateᵀ and the state update.  The scan's result does not
+    depend on where the pieces fall; M x and C Bᵀ grow with ``rows``, the
+    others do not, so one row at a time needs the fewest.  ``old_s``
+    prices C Bᵀ at the peak of B/C's type and the rest at the f32 CUDA
+    cores' 67 TFLOP/s (the bound of the CUDA-core design); ``tc_s`` prices
+    each product by the split-TF32 passes it needs at 495 TFLOP/s (C Bᵀ one
+    bf16 pass at 989 when B/C are bf16; M x three passes, two for bf16 x;
+    C stateᵀ and the update two, three for f32 B/C)."""
     x_bytes = torch.tensor([], dtype=x_dtype).element_size()
     bc_bytes = torch.tensor([], dtype=bc_dtype).element_size()
     nbytes = 2 * b * l * h * p * x_bytes + 2 * b * l * n * bc_bytes \
         + b * l * h * 4 + h * 4
-    tri = Q * (Q + 1) // 2
-    cb_flops = b * (l // Q) * 2 * tri * n
-    head_flops = b * h * (l // Q) * (2 * tri * p + 2 * Q * n * p
-                                     + 2 * Q * p * n)
-    seconds = cb_flops / PEAK_FLOPS[bc_dtype] \
-        + head_flops / PEAK_FLOPS[torch.float32]
-    return nbytes, cb_flops, head_flops, seconds
+    tri, chunks = rows * (rows + 1) // 2, b * (l // rows)
+    cb = chunks * 2 * tri * n
+    diag = chunks * h * 2 * tri * p
+    off = upd = chunks * h * 2 * rows * n * p
+    bc16 = bc_dtype == torch.bfloat16
+    old_s = cb / PEAK_FLOPS[bc_dtype] + (diag + off + upd) / 67e12
+    passes = {"cb": 1 if bc16 else 3,
+              "diag": 2 if x_dtype == torch.bfloat16 else 3,
+              "off": 2 if bc16 else 3, "upd": 2 if bc16 else 3}
+    tc_s = (cb / PEAK_FLOPS[torch.bfloat16] if bc16 else 3 * cb / PEAK_TF32) \
+        + (passes["diag"] * diag + passes["off"] * off
+           + passes["upd"] * upd) / PEAK_TF32
+    return {"bytes": nbytes, "flops_cb": cb, "flops_diag": diag,
+            "flops_off": off, "flops_update": upd, "passes": passes,
+            "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "old_ms": old_s * 1e3, "tc_ms": tc_s * 1e3}
 
 
 def time_k3(iters: int = 10) -> dict:
     """K3 and its plain version at the full-width shape of the main path's
-    forward (x f32, B/C bf16), interleaved plain, kernel, kernel, plain."""
-    d = dict(K3_FULL)
-    Q = d.pop("Q")
-    args = ssd_case(230, **d, x_dtype=torch.float32, bc_dtype=torch.bfloat16)
-    y = k3.ssd_scan_kernel(*args, Q)
-    plain_y = k3.ssd_scan_ref(*args, Q)
-    torch.cuda.synchronize()
-    max_err = float((y - plain_y).abs().max())
-    kern = lambda i: k3.ssd_scan_kernel(*args, Q)
-    plain = lambda i: k3.ssd_scan_ref(*args, Q)
-    plain_a = time_ms(plain, iters=3, warmup=1)
-    kern_a = time_ms(kern, iters=iters)
-    kern_b = time_ms(kern, iters=iters)
-    plain_b = time_ms(plain, iters=3, warmup=1)
-    device = kernel_device_ms(kern, "ssd_scan_kernel", iters)
-    nbytes, cb_flops, head_flops, seconds = ssd_work(
-        **d, Q=Q, x_dtype=torch.float32, bc_dtype=torch.bfloat16)
-    flops = cb_flops + head_flops
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = seconds * 1e3
-    entry = {
+    forward and at two pruned shapes (x f32, B/C bf16), interleaved plain,
+    kernel, kernel, plain by CUDA events, and the profiler's device time
+    per call; the bound (``ssd_work``) at one row at a time, beside the
+    tensor-core time of the kernel's own sub-chunks and the old bound of
+    the CUDA-core design (whole chunks)."""
+    res = {}
+    for label, sh in (("full", K3_FULL), ("pruned", K3_PRUNED),
+                      ("pruned odd", K3_PRUNED_ODD)):
+        d = dict(sh)
+        Q = d.pop("Q")
+        args = ssd_case(230, **d, x_dtype=torch.float32,
+                        bc_dtype=torch.bfloat16)
+        sub = k3.sub_chunk(Q)
+        smem = k3.smem_bytes(Q, d["p"], d["n"], False, True)
+        y = k3.ssd_scan_kernel(*args, Q)
+        plain_y = k3.ssd_scan_ref(*args, Q)
+        torch.cuda.synchronize()
+        max_err = float((y - plain_y).abs().max())
+        kern = lambda i: k3.ssd_scan_kernel(*args, Q)
+        plain = lambda i: k3.ssd_scan_ref(*args, Q)
+        plain_a = time_ms(plain, iters=3, warmup=1)
+        kern_a = time_ms(kern, iters=iters)
+        kern_b = time_ms(kern, iters=iters)
+        plain_b = time_ms(plain, iters=3, warmup=1)
+        device = kernel_device_ms(kern, "ssd_scan_kernel", iters)
+        kw = dict(x_dtype=torch.float32, bc_dtype=torch.bfloat16)
+        work = ssd_work(**d, rows=1, **kw)
+        at_sub = ssd_work(**d, rows=sub, **kw)
+        old = ssd_work(**d, rows=Q, **kw)["old_ms"]
+        bound = max(work["tc_ms"], work["bytes_ms"])
+        r = {"ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
+             "device_ms": device, "max_abs_err": max_err, "sub_chunk": sub,
+             "smem_bytes": smem, "bound_ms": bound,
+             "bound_by": "bytes" if work["bytes_ms"] >= work["tc_ms"]
+             else "operations", **work, "tc_ms_at_sub_chunk": at_sub["tc_ms"],
+             "old_ms": old}
+        res[label] = r
+        dev_txt = "not measured" if device is None else f"{device:.4f} ms"
+        print(f"  ssd_scan {label} {tuple(d.values())} Q={Q} (sub-chunks of "
+              f"{sub}, {smem} bytes of shared memory): device {dev_txt} | "
+              f"events {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
+              f"library none | bound {bound:.4f} ms ({r['bound_by']}): "
+              f"{work['bytes'] / 1e6:.1f} MB at 3.35 TB/s = "
+              f"{work['bytes_ms']:.4f} ms, tensor cores a row at a time "
+              f"{work['tc_ms']:.4f} ms, in sub-chunks of {sub} "
+              f"{at_sub['tc_ms']:.4f} ms (passes {work['passes']}); old "
+              f"bound (f32 CUDA cores, chunks of {Q}) {old:.4f} ms | max abs "
+              f"err {max_err:.2e}", flush=True)
+        if device is not None:
+            print(f"    share of the bound {bound / device:.1%}, of the old "
+                  f"bound {max(old, work['bytes_ms']) / device:.1%}",
+                  flush=True)
+        del args, y, plain_y
+        torch.cuda.empty_cache()
+    full = res["full"]
+    return {
         "name": "ssd_scan", "route": "cuda", "source": K3_SOURCE,
-        "replaces": K3_REPLACES, "launches": 0, "max_abs_err": max_err,
-        "ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
-        "bound_ms": max(t_bytes, t_flops),
-        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-        "library_ms": None,
+        "replaces": K3_REPLACES, "launches": 0,
+        "max_abs_err": full["max_abs_err"], "ms": full["ms"],
+        "plain_ms": full["plain_ms"], "bound_ms": full["bound_ms"],
+        "bound_by": full["bound_by"], "library_ms": None,
+        "device_ms": full["device_ms"],
+        "bound_ms_cuda_cores": max(full["old_ms"], full["bytes_ms"]),
         "shape": dict(K3_FULL, x="float32", bc="bfloat16"),
-        "bytes": nbytes, "flops": flops, "flops_cb_bf16": cb_flops,
-        "flops_f32": head_flops, "device_ms": device,
-        "peak": "C Bᵀ at bf16 989 TFLOP/s, the rest at f32 CUDA cores "
-                "67 TFLOP/s, HBM 3.35 TB/s",
+        "peak": "TF32 495 TFLOP/s, bf16 989 TFLOP/s, HBM 3.35 TB/s; old "
+                "bound: f32 CUDA cores 67 TFLOP/s",
+        "full": full, "pruned": res["pruned"],
+        "pruned_odd": res["pruned odd"],
     }
-    print(f"  ssd_scan {tuple(d.values())} Q={Q}: kernel {entry['ms']:.4f} "
-          f"ms | plain {entry['plain_ms']:.4f} ms | library none | bound "
-          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}: C Bᵀ "
-          f"{cb_flops / 1e9:.4f} GFLOP at 989 TFLOP/s bf16 + "
-          f"{head_flops / 1e9:.3f} GFLOP at 67 TFLOP/s f32 CUDA cores = "
-          f"{t_flops:.4f} ms; "
-          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s = {t_bytes:.4f} ms) | max abs "
-          f"err {max_err:.2e} | device time per launch (profiler) "
-          f"{'not measured' if device is None else f'{device:.4f} ms'}",
-          flush=True)
-    del args, y, plain_y
-    torch.cuda.empty_cache()
-    return entry
 
 
 # ---------------------------------------------------------------------------
@@ -2536,6 +2603,12 @@ def main() -> int:
     if k1_build["sass"] and not k1_build["sass"]["HGMMA"]:
         raise AssertionError("K1's SASS holds no HGMMA (wgmma) instruction")
     k2_build = build_report("flash_attention", "K2")
+    k3_build = build_report("ssd_scan", "K3")
+    if k3_build["sass"] and not k3_build["sass"]["HMMA"]:
+        raise AssertionError("K3's SASS holds no HMMA (mma.sync) instruction")
+    spilled = [k["name"] for k in k3_build["kernels"] if k["spill_bytes"]]
+    if spilled:
+        raise AssertionError(f"K3 instances spill registers: {spilled}")
 
     worst = phase_kernel_checks(rng, args.seed)
     print("phase 3b: kernel times at the main path's shapes (bf16)",
@@ -2561,11 +2634,13 @@ def main() -> int:
     k4_entry["max_rel_err_vs_oracle"] = k4_rel
     kernels.append(k4_entry)
     k3_rel = phase_k3_checks()
-    print("phase 8b: K3 time at the full-width forward's shape", flush=True)
+    print("phase 8b: K3 time at the full-width and two pruned forwards' "
+          "shapes", flush=True)
     k3_entry = time_k3()
     mamba_res = phase_mamba2_path(rng, args.quick)
     k3_entry["launches"] = mamba_res["k3_launches"]
     k3_entry["max_rel_err"] = k3_rel
+    k3_entry["build"] = build_summary(k3_build)
     kernels.append(k3_entry)
     k2_err = phase_k2_checks()
     print("phase 10b: K2 time at the main path's shape", flush=True)
@@ -2584,7 +2659,8 @@ def main() -> int:
                                  f"path")
 
     print(json.dumps({"builds": {"paged_attention": k1_build,
-                                 "flash_attention": k2_build}}))
+                                 "flash_attention": k2_build,
+                                 "ssd_scan": k3_build}}))
     print(json.dumps({"main_path": main_res}))
     print(json.dumps({"device_code_ms": dev_res}))
     print(json.dumps({"prune_path": prune_res, "k4_sweep": k4_sweep}))

@@ -34,8 +34,8 @@
 //  * One warpgroup (128 threads) per (64-row query tile, head, batch); a
 //    block holds the warpgroups of two query heads of one KV head where the
 //    group size is even, so each K/V tile is read once for both (the copies
-//    of K/V tiles were the largest cost; k2_breakdown.py at the repository
-//    root times each part).  Blocks are ordered longest first: the query
+//    of K/V tiles were the largest cost; `breakdown.py k2` times each
+//    part).  Blocks are ordered longest first: the query
 //    tiles with the most keys to visit start first, so the causal tail is
 //    short.  The query tiles stay in shared memory; K and V stream through
 //    a two-stage ring of 64-key tiles, the copy of tile t+1 (cp.async.cg,

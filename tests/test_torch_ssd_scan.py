@@ -20,7 +20,7 @@ from repro_torch.convert import to_tensor
 from repro_torch.kernels.ssd_scan import (
     check_args, ssd_scan, ssd_scan_kernel, ssd_scan_ref)
 from repro_torch.kernels.ssd_scan.ssd_scan import (
-    MAX_SMEM, row_block, smem_bytes)
+    MAX_SMEM, smem_bytes, sub_chunk)
 from repro_torch.models.ssm import ssd_reference
 
 # the reference's grid (tests/test_kernels.py::test_ssd_scan), then the
@@ -162,6 +162,8 @@ def _bad(kind):
     elif kind == "chunk-not-multiple-of-4":
         a = _args(l=30)
         chunk = 6
+    elif kind == "chunk-not-multiple-of-16":
+        chunk = 8
     elif kind == "tiles-too-big":
         a = _args(p=256, n=256, l=128)
         chunk = 128
@@ -170,7 +172,7 @@ def _bad(kind):
 
 BAD = ["x-3d", "dt-shape", "A-shape", "C-shape", "x-int", "x-f16", "dt-bf16",
        "A-f64", "B-C-types-differ", "B-not-contiguous", "l-not-multiple",
-       "chunk-not-multiple-of-4", "tiles-too-big"]
+       "chunk-not-multiple-of-4", "chunk-not-multiple-of-16", "tiles-too-big"]
 
 
 @pytest.mark.parametrize("kind", BAD)
@@ -188,19 +190,19 @@ def test_check_args_accepts_the_repo_shapes():
     the reference grid, the reduced model (16, 16, 16) and its 50 %-pruned
     (8, 8, 16), full-width mamba2-1.3b (64, 128, 128) and its 50 %-pruned
     (32, 64, 128), and odd widths another ratio leaves (the kernel pads p
-    and n inside shared memory); full width runs M in row blocks of 32."""
+    and n inside shared memory); full width runs in sub-chunks of 64 rows,
+    two blocks an SM."""
     for p, n, Q in [(16, 16, 16), (32, 64, 64), (64, 128, 32), (16, 32, 32),
                     (8, 8, 16), (64, 128, 128), (32, 64, 128),
                     (11, 13, 16)]:           # a pruning ratio's odd widths
-        rb = row_block(Q, p, n)
-        assert rb is not None and smem_bytes(Q, p, n, rb) <= MAX_SMEM
         for xdt, bdt in [(torch.float32, torch.float32),
                          (torch.float32, torch.bfloat16),
                          (torch.bfloat16, torch.bfloat16)]:
-            assert check_args(*_args(l=2 * Q, p=p, n=n, xdt=xdt, bdt=bdt),
-                              Q) == rb
-    assert row_block(128, 64, 128) == 32
-    assert smem_bytes(128, 64, 128, 32) == 219648
+            assert smem_bytes(Q, p, n, xdt == torch.bfloat16,
+                              bdt == torch.bfloat16) <= MAX_SMEM
+            check_args(*_args(l=2 * Q, p=p, n=n, xdt=xdt, bdt=bdt), Q)
+    assert sub_chunk(128) == 64
+    assert smem_bytes(128, 64, 128, False, True) == 108800
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -221,6 +223,8 @@ def cuda_device():
 
 @pytest.mark.gpu
 def test_cuda_kernel_vs_plain_on_the_card(cuda_device):
+    """Each call launches the kernel once, agrees with the plain version,
+    and gives the same bits when repeated (no atomics)."""
     from repro_torch.kernels.ssd_scan import launch_count
     for case in sorted(SHAPES):
         b, l, h, p, n, Q, xd, bd = SHAPES[case]
@@ -230,5 +234,9 @@ def test_cuda_kernel_vs_plain_on_the_card(cuda_device):
         y = ssd_scan(*t, Q)
         torch.cuda.synchronize()
         assert launch_count() == before + 1
+        again = ssd_scan(*t, Q)
+        torch.cuda.synchronize()
+        assert launch_count() == before + 2
+        assert torch.equal(y, again), case
         ref = ssd_scan_ref(*t, Q)
         assert rel(as_np(y.cpu()), as_np(ref.cpu())) < tol(xd), case
