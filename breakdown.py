@@ -5,6 +5,7 @@ Run from the repository root on a machine with an NVIDIA GPU:
 
     python3 breakdown.py k2
     python3 breakdown.py k3 [--parent DIR]
+    python3 breakdown.py k4 [--parent DIR]
 
 It compiles copies of the kernel's source with one part removed or changed
 (the kernel's table of variants below) and times each against the unchanged
@@ -33,6 +34,19 @@ independent accumulators each), the ceiling of the kernel's products.
 ``--parent DIR`` adds the kernel of another checkout (its ``src/repro_torch/
 kernels/csrc/ssd_scan.cu``; the CUDA-core design, whose launch takes a row
 block after the chunk, gets 32), built and timed in the same rounds.
+
+k4, the OBSPA in-block sweep (``kernels/csrc/obspa_update.cu``) at the
+three tiles of ``chip_smoke.k4_tiles`` (R 2048, one 128-column block, f32:
+67, 64 contiguous and all 128 columns pruned): the Hinv rows read from
+global memory in the chain in place of the staged ones, the copies
+skipped, issued by warp 0 alone, or of whole rows; the walk of all 128
+columns with a branch each, or of the set bits with one row buffer (a
+move a step); the divide in place of the reciprocal; 1 or 4 rows a warp;
+4 or 16 warps a block; no walk at all (loads, copies and stores).
+``--parent DIR`` adds the kernel of another checkout and, for the first
+design (Hinv staged whole by 4-byte loads, every column walked, a divide
+a row and step, four rows a warp, four warps a block), copies of it with
+one suspect removed, all built and timed in the same rounds.
 """
 from __future__ import annotations
 
@@ -54,11 +68,13 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as k2  # noqa: E402
+from repro_torch.kernels import obspa_update as k4  # noqa: E402
 from repro_torch.kernels import ssd_scan as k3  # noqa: E402
 
 # the packages re-export the dispatch functions over the modules' names
 K2_MODULE = sys.modules["repro_torch.kernels.flash_attention.flash_attention"]
 K3_MODULE = sys.modules["repro_torch.kernels.ssd_scan.ssd_scan"]
+K4_MODULE = sys.modules["repro_torch.kernels.obspa_update.obspa_update"]
 CSRC = ROOT / "src/repro_torch/kernels/csrc"
 
 # name -> ((text in the tensor-core half of the source, its replacement),
@@ -126,6 +142,116 @@ K3_VARIANTS = {
     "no state update": ((K3_NO_STATE,), False),
     "copies and barriers only": (
         (K3_NO_YOFF, K3_NO_M, K3_NO_DIAG, K3_NO_STATE), False),
+}
+
+# K4: the edits the variants below share
+K4_EXPECT = ("mbar_arrive_expect_tx(&bar[k],\n"
+             "                            __popc(bits[k]) * (BLK - "
+             "row_col0(k)) * 4);", "mbar_arrive_expect_tx(&bar[k], 0);")
+K4_NO_COPY = ("bulk_g2s(hs + c * BLK", "if (false) bulk_g2s(hs + c * BLK")
+# the walk of one quarter in other forms, around the same load_row and step
+K4_WALKS = {
+    "whole walk": (
+        "    for (int jj = 0; jj < 32; ++jj) {\n"
+        "      if (!(left >> jj & 1u)) continue;\n"
+        "      float hr[CPL];\n"
+        "      load_row(hr, staged(c, kk, jj), kk, lane);\n"
+        "      ++c;\n"
+        "      step(wr, er, hr, rinv[kk], kk, jj, lane);\n"
+        "    }\n"),
+    "one buffer": (
+        "    float hn[CPL];\n"
+        "    int jn = __ffs(left) - 1;\n"
+        "    if (left) load_row(hn, staged(c, kk, jn), kk, lane);\n"
+        "    while (left) {\n"
+        "      float hr[CPL];\n#pragma unroll\n"
+        "      for (int k = 0; k < CPL; ++k) hr[k] = hn[k];\n"
+        "      const int j = jn;\n"
+        "      left &= left - 1u;\n"
+        "      ++c;\n"
+        "      if (left) {\n"
+        "        jn = __ffs(left) - 1;\n"
+        "        load_row(hn, staged(c, kk, jn), kk, lane);\n"
+        "      }\n"
+        "      step(wr, er, hr, rinv[kk], kk, j, lane);\n"
+        "    }\n"),
+    "no walk": "",
+}
+
+
+def k4_branchy(j: str, buf: str) -> tuple[str, str]:
+    """The walk's read of the next row, and the same behind ``if (left)``."""
+    read = (f"      {j} = __ffs(left) - 1;\n"
+            f"      load_row({buf}, staged(c, kk, {j}), kk, lane);\n")
+    return read, ("      if (left) {\n" + read.replace("      ", "        ")
+                  + "      }\n")
+
+
+def k4_walk(src: str) -> str:
+    """The ballot walk of one quarter, between the source's markers."""
+    a, b = "    // walk: begin\n", "    // walk: end\n"
+    return src[src.index(a):src.index(b)]
+
+
+# name -> ((text in the source, its replacement), ...), and whether W and
+# E must stay bitwise equal to the unchanged kernel's (a name of K4_WALKS in
+# place of the edits: that walk in place of the ballot walk)
+K4_VARIANTS = {
+    "as built": ((), True),
+    "no staging (rows from global)": (
+        (K4_EXPECT, K4_NO_COPY,
+         ("return hs + min(c, BLK - 1) * BLK;",
+          "return h + (32 * kk + max(j, 0)) * a.h_ld;")),
+        True),
+    "copies skipped": ((K4_EXPECT, K4_NO_COPY), False),
+    "copies issued by warp 0 alone": (
+        (("c % WARPS == warp", "warp == 0"),), True),
+    "whole rows staged": (
+        (("constexpr bool TRIANGLE = true;",
+          "constexpr bool TRIANGLE = false;"),), True),
+    "whole 128-column walk": ("whole walk", True),
+    "one row buffer (a move a step)": ("one buffer", True),
+    "next row read behind a branch": (
+        (k4_branchy("jb", "hb"), k4_branchy("ja", "ha")), True),
+    "divide for the reciprocal": (
+        (("wj * rinv", "wj / rinv"), ("rinv[kk], kk,", "hd[kk], kk,")),
+        False),
+    "1 row a warp": (
+        (("constexpr int RW = 2;", "constexpr int RW = 1;"),), True),
+    "4 rows a warp": (
+        (("constexpr int RW = 2;", "constexpr int RW = 4;"),), True),
+    "4 warps a block": (
+        (("constexpr int WARPS = 8;", "constexpr int WARPS = 4;"),), True),
+    "16 warps a block": (
+        (("constexpr int WARPS = 8;", "constexpr int WARPS = 16;"),), True),
+    "no walk (loads, copies, stores)": ("no walk", False),
+}
+
+# the first design, with one suspect removed (``--parent``; the texts are its
+# source's): exact unless marked False
+K4_FIRST_STAGE = "    hs[i] = h[(i / BLK) * a.h_ld + (i % BLK)];"
+K4_FIRST_VARIANTS = {
+    "first design": ((), True),
+    "first design, rows read from global": (
+        ((K4_FIRST_STAGE, "    ;"),
+         ("hs[j * BLK + j]", "h[j * a.h_ld + j]"),
+         ("hs[j * BLK + lane + 32 * k]", "h[j * a.h_ld + lane + 32 * k]")),
+        True),
+    "first design, staging skipped": (((K4_FIRST_STAGE, "    ;"),), False),
+    "first design, a multiply for the divide": (
+        (("__shfl_sync(FULL, wr[r][kk], jj) / hjj",
+          "__shfl_sync(FULL, wr[r][kk], jj) * hjj"),), False),
+    "first design, no chain": (
+        (("if (!ms[j]) continue;", "if (true) continue;"),), False),
+    "first design, loads and stores only": (
+        ((K4_FIRST_STAGE, "    ;"),
+         ("if (!ms[j]) continue;", "if (true) continue;")), False),
+    "first design, 2 rows a warp": (
+        (("constexpr int RW = 4;", "constexpr int RW = 2;"),), True),
+    "first design, 1 row a warp": (
+        (("constexpr int RW = 4;", "constexpr int RW = 1;"),), True),
+    "first design, 8 warps a block": (
+        (("constexpr int WARPS = 4;", "constexpr int WARPS = 8;"),), True),
 }
 
 MMA_BENCH = r"""
@@ -359,11 +485,91 @@ def run_k3(args, out: Path) -> None:
                    for n, (_, exact) in K3_VARIANTS.items() if exact})
 
 
+def k4_launcher(so: Path):
+    """The library's launch, as K4's wrapper calls it (one C interface for
+    every design)."""
+    lib = ctypes.CDLL(str(so))
+    fn = lib.obspa_inblock_launch
+    p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = [p, i64, i64, p, i64, i64, p, p, i64, i64, p, i, i, p]
+    fn.restype = i
+    lib.obspa_inblock_error_string.argtypes = [i]
+    lib.obspa_inblock_error_string.restype = ctypes.c_char_p
+    return fn, lib.obspa_inblock_error_string
+
+
+def run_k4(args, out: Path) -> None:
+    src = (CSRC / "obspa_update.cu").read_text()
+    walk = k4_walk(src)
+    texts = {n: variant_source(src, ((walk, K4_WALKS[e]),)
+                               if isinstance(e, str) else e)
+             for n, (e, _) in K4_VARIANTS.items()}
+    exact = {n: ex for n, (_, ex) in K4_VARIANTS.items()}
+    if args.parent is not None:
+        src = (args.parent / "src/repro_torch/kernels/csrc/"
+               "obspa_update.cu").read_text()
+        if K4_FIRST_STAGE in src:
+            texts.update({n: variant_source(src, e)
+                          for n, (e, _) in K4_FIRST_VARIANTS.items()})
+            exact.update({n: ex for n, (_, ex) in K4_FIRST_VARIANTS.items()})
+        else:
+            texts["parent"], exact["parent"] = src, False
+    built = build_all(texts, out)
+    for name, (_, log) in built.items():
+        print(f"{name}: " + "; ".join(
+            f"{k['name'].split('(')[0]} {k['registers']} registers, "
+            f"{k['spill_bytes']} bytes spilled"
+            for k in cs.ptxas_kernels(log)), flush=True)
+    libs = {n: k4_launcher(so) for n, (so, _) in built.items()}
+    tiles = cs.k4_tiles()
+    outs = {lab: (torch.empty_like(w), torch.empty_like(w))
+            for lab, (w, _, _) in tiles.items()}
+    K4_MODULE._fn = libs["as built"]
+    plain = {lab: k4.inblock_sweep_plain(t[0][None], t[1][None], t[2])
+             for lab, t in tiles.items()}
+    # the unchanged kernel of each design is the yardstick of its variants
+    base = {n: "first design" if n.startswith("first design")
+            else "as built" for n in libs}
+    first: dict = {}
+    err: dict = {}
+
+    def use(name):
+        K4_MODULE._fn = libs[name]
+
+    def check(name, lab, res):
+        first.setdefault((name, lab), tuple(t.clone() for t in res))
+        p = plain[lab]
+        err[(name, lab)] = max(float((res[0] - p[0][0]).abs().max()),
+                               float((res[1] - p[1][0]).abs().max()))
+
+    def call(lab):
+        w, h, m = tiles[lab]
+        o, e = outs[lab]
+        return lambda i: k4.inblock_sweep_kernel(w, h, m, out=o, e_out=e)
+
+    times = time_rounds(list(libs), {lab: call(lab) for lab in tiles}, use,
+                        "inblock_sweep_kernel", 50, check)
+    notes = {}
+    for n in libs:
+        worst = max(err[(n, lab)] for lab in tiles)
+        notes[n] = f"; max abs err vs plain {worst:.2e}"
+        if exact[n] and n != base[n]:
+            same = all(torch.equal(a, b) for lab in tiles for a, b in
+                       zip(first[(n, lab)], first[(base[n], lab)]))
+            notes[n] += (f"; bitwise equal to {base[n]}" if same else
+                         f"; DIFFERS from {base[n]}")
+    print("K4 device ms per launch (median of 3 rounds; events beside), "
+          "R 2048, one 128-column block, f32: " + ", ".join(tiles),
+          flush=True)
+    report(times, notes)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("kernel", choices=("k2", "k3"))
+    ap.add_argument("kernel", choices=("k2", "k3", "k4"))
     ap.add_argument("--parent", type=Path, default=None,
-                    help="k3: a checkout whose K3 is timed beside this one")
+                    help="k3, k4: a checkout whose kernel is timed beside "
+                         "this one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("breakdown: no CUDA device; this script runs on the GPU only",
@@ -373,7 +579,7 @@ def main() -> int:
     print(cs.nvidia_smi_line(), flush=True)
     out = ROOT / "build" / "breakdown" / args.kernel
     out.mkdir(parents=True, exist_ok=True)
-    (run_k2 if args.kernel == "k2" else run_k3)(args, out)
+    {"k2": run_k2, "k3": run_k3, "k4": run_k4}[args.kernel](args, out)
     return 0
 
 

@@ -10,7 +10,7 @@ nothing of JAX or of the JAX package.  Phases:
 
  1. environment: the card (name, power limit), torch / CUDA / nvcc versions;
  2. build of the kernel libraries from ``src/repro_torch/kernels/csrc``;
-    K1's, K2's and K3's instances with their registers, spills and stack
+    every kernel instance with its registers, spills and stack
     (``ptxas -v``) and the count of tensor-core instructions in their SASS
     (``cuobjdump``);
  3. the paged-attention kernel K1 against its plain PyTorch version on the
@@ -34,8 +34,15 @@ nothing of JAX or of the JAX package.  Phases:
  5. times of the device code around the kernel (KV scatter, sampling, COW);
  6. the OBSPA sweep kernel K4 against its plain PyTorch version and the
     float64 oracle (the reference's test shapes, identity Hessian, a batched
-    case, the main path's R=2048 x K=2048 / 5632 at half the columns pruned),
-    and its time beside the plain version and the card's bound;
+    case, the main path's R=2048 x K=2048 / 5632 at half the columns
+    pruned), then K4 alone on one column block at the design's edge cases
+    (no, one, 64 contiguous, all 128, the first or the last column pruned;
+    R 1, 17, 2051; nb 4 with one shared Hinv), each call repeated bitwise,
+    in place and counted; then (6b) its profiler device time at three
+    tiles of R 2048 (67, 64 contiguous and all 128 columns pruned) beside
+    the plain version, the card's bound and a triangular solve and product
+    (``k4_yardstick``), and the whole sweep of a (2048, 5632) view with its
+    kernels counted;
  7. the prune-then-serve path at full width: ``tinyllama-1.1b`` OBSPA-pruned
     on the card at ratio 0.5 with data-free calibration (its sweeps launch
     K4), every reconstructed layer's output error held below plain slicing,
@@ -1149,7 +1156,76 @@ def phase_k4_checks() -> float:
         _, e = check_sweep(f"main path R=2048 K={K} half pruned",
                            *sweep_case(120 + K, 2048, K, 0.5))
         worst = max(worst, e)
+    print("  one column block (the kernel alone; W and E vs float64 and "
+          "plain, two calls and the sweep in place bitwise equal):",
+          flush=True)
+    for name, (w, h, mask) in k4_edge_cases().items():
+        worst = max(worst, check_inblock(name, w, h, mask))
     return worst
+
+
+def k4_edge_cases() -> dict:
+    """The design's edge cases at the card's sizes: (w, hinv, mask) of one
+    128-column block — the masks none, one column, 64 contiguous, all 128,
+    the first and the last column alone at R 2048; R 1, 17 and 2051 (a
+    tail of 3 rows) half pruned; nb 4 with one Hinv block for all (the
+    launch's h_bs = 0)."""
+    B = k4.BLOCK
+    W, Hinv, _ = sweep_case(130, 2048, B, 0.5)
+    Hinv = Hinv.contiguous()        # torch.linalg.inv's are column-major
+    cols = {"no column": [], "one column (37)": [37],
+            "64 contiguous": list(range(64, B)), "all 128": list(range(B)),
+            "first column alone": [0], "last column alone": [B - 1]}
+    cases = {}
+    for name, cs in cols.items():
+        mask = torch.zeros(B, dtype=torch.bool, device=DEV)
+        mask[cs] = True
+        cases[f"R=2048 {name}"] = (W, Hinv, mask)
+    for R in (1, 17, 2051):
+        w, h, m = sweep_case(131 + R, R, B, 0.5)
+        cases[f"R={R} half pruned"] = (w, h.contiguous(), m)
+    W4, H4, m4 = sweep_case(140, 2048, B, 0.5, nb=4)
+    cases["nb=4 R=2048 one shared Hinv"] = (W4, H4[:1].contiguous(), m4)
+    return cases
+
+
+def check_inblock(name, w, h, mask) -> float:
+    """K4 on one column block against the plain version (f32) and the same
+    in float64: W and E each relative to its float64 oracle's largest
+    value (W's residue relative to the input's when every column is
+    pruned, its oracle being zero); two calls bitwise equal and one launch
+    each; the sweep in place (out = w) equal to them bit for bit."""
+    n0 = k4.launch_count()
+    kw, ke = k4.inblock_sweep_kernel(w, h, mask)
+    kw2, ke2 = k4.inblock_sweep_kernel(w, h, mask)
+    ip = w.clone()
+    iw, ie = k4.inblock_sweep_kernel(ip, h, mask, out=ip)
+    torch.cuda.synchronize()
+    launches = k4.launch_count() - n0
+    w3, h3 = (w, h) if w.ndim == 3 else (w[None], h[None])
+    pw, pe = k4.inblock_sweep_plain(w3, h3, mask)
+    gw, ge = k4.inblock_sweep_plain(w3.double(), h3.double(), mask)
+    kw3, ke3 = kw.reshape(pw.shape).double(), ke.reshape(pe.shape).double()
+    sw = float((w.abs() if bool(mask.all()) else gw.abs()).max())
+    e_w = max(float((kw3 - gw).abs().max()),
+              float((kw3 - pw.double()).abs().max())) / max(sw, 1e-30)
+    if bool(mask.any()):
+        e_e = max(float((ke3 - ge).abs().max()),
+                  float((ke3 - pe.double()).abs().max())) / max(
+            float(ge.abs().max()), 1e-30)
+    else:
+        e_e = float(ke3.abs().max())
+    same = all(torch.equal(a, b) for a, b in
+               ((kw, kw2), (ke, ke2), (iw, kw), (ie, ke)))
+    ok = e_w < K4_RTOL and e_e < K4_RTOL and same and launches == 3 and \
+        bool(torch.isfinite(kw).all() and torch.isfinite(ke).all())
+    print(f"    {name:36s} W {e_w:.2e}, E {e_e:.2e} (tol {K4_RTOL:g}), "
+          f"bitwise repeats {same}, launches {launches} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"K4 {name}: W {e_w}, E {e_e}, bitwise {same}, "
+                             f"launches {launches}")
+    return max(e_w, e_e)
 
 
 def device_profile(fn, iters: int, name: str | None = None,
@@ -1182,7 +1258,8 @@ def device_profile(fn, iters: int, name: str | None = None,
                      for e in evs)
             return {"ms": us / 1e3,
                     "kernels_per_call": sum(per_call.values()),
-                    "events_per_call": sum(e.count for e in evs) / iters}
+                    "events_per_call": sum(e.count for e in evs) / iters,
+                    "launches_per_call": per_call}
     return None
 
 
@@ -1195,65 +1272,123 @@ def kernel_device_ms(fn, name: str, iters: int) -> float | None:
 
 def inblock_work(R: int, mask) -> tuple[int, int]:
     """(bytes, flops) of one in-block sweep, from this mask: W read and
-    written once, E written once, the Hinv block and the mask read once;
-    per pruned column j a divide and a multiply-add over columns j..127 of
-    every row."""
+    written once, E written once, the mask read once, and of Hinv the row
+    of each pruned column j from j on (what the chain reads); per pruned
+    column a reciprocal, and a multiply and a multiply-add over columns
+    j..127 of every row."""
     B = k4.BLOCK
-    nbytes = 3 * R * B * 4 + B * B * 4 + B
     cols = torch.nonzero(mask.cpu())[:, 0].tolist()
+    nbytes = 3 * R * B * 4 + sum((B - j) * 4 for j in cols) + B
     flops = sum(R * (1 + 2 * (B - j)) for j in cols)
     return nbytes, flops
 
 
-def time_k4(iters: int = 50) -> tuple[dict, dict]:
-    """K4 and its plain version at the main path's shape (one 128-column
-    block of a 2048-row view, half the columns pruned), and the whole sweep
-    of a (2048, 5632) view on the kernel path vs the plain sweep."""
-    R, B = 2048, k4.BLOCK
+def k4_yardstick(w, h, mask):
+    """The sweep of one block as a triangular solve and a product (an
+    informative yardstick, not one call: E_P = W_P · triu(Hinv[P, P])⁻¹,
+    then W − E_P · (Hinv[P, :] from each row's own column on)); the two
+    matrices of Hinv are made before, as the kernel's copies are not."""
+    P = torch.nonzero(mask)[:, 0]
+    U = torch.triu(h[P][:, P])
+    cols = torch.arange(k4.BLOCK, device=DEV)
+    Hm = torch.where(cols[None, :] >= P[:, None], h[P], 0.0)
+
+    def fn(i):
+        ep = torch.linalg.solve_triangular(U, w.index_select(1, P),
+                                           upper=True, left=False)
+        return torch.addmm(w, ep, Hm, alpha=-1), ep
+    return fn
+
+
+def k4_tiles(R: int = 2048) -> dict:
+    """The three timed tiles (R rows, one 128-column block, f32) as
+    (w, hinv, mask) on the card: tile 0 of ``sweep_case(7, R, 5632, 0.5)``
+    (phase 6b's; 67 of 128 columns pruned), the same w and hinv with 64
+    contiguous columns pruned (a head of ``wo`` at head_dim 64), and with
+    all 128 pruned."""
+    B = k4.BLOCK
     W, Hinv, mask = sweep_case(7, R, 5632, 0.5)
-    n_rot = 4
-    tiles = [(W[:, i * B:(i + 1) * B].contiguous(),
-              Hinv[i * B:(i + 1) * B, i * B:(i + 1) * B].contiguous(),
-              mask[i * B:(i + 1) * B].contiguous()) for i in range(n_rot)]
-    outs = [torch.empty_like(t[0]) for t in tiles]
-    w, e = k4.inblock_sweep_kernel(*tiles[0])
-    pw, pe = k4.inblock_sweep_plain(tiles[0][0][None], tiles[0][1][None],
-                                    tiles[0][2])
-    torch.cuda.synchronize()
-    max_err = max(float((w - pw[0]).abs().max()),
-                  float((e - pe[0]).abs().max()))
-    kern = lambda i: k4.inblock_sweep_kernel(*tiles[i % n_rot],
-                                             out=outs[i % n_rot])
-    plain = lambda i: k4.inblock_sweep_plain(
-        tiles[i % n_rot][0][None], tiles[i % n_rot][1][None],
-        tiles[i % n_rot][2])
-    plain_a = time_ms(plain, iters=5, warmup=1)
-    kern_a = time_ms(kern, iters=iters)
-    kern_b = time_ms(kern, iters=iters)
-    plain_b = time_ms(plain, iters=5, warmup=1)
-    device = kernel_device_ms(kern, "inblock_sweep_kernel", iters)
-    nbytes, flops = inblock_work(R, tiles[0][2])
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_flops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    w, h = W[:, :B].contiguous(), Hinv[:B, :B].contiguous()
+    head = torch.zeros(B, dtype=torch.bool, device=DEV)
+    head[64:] = True
+    return {f"{int(mask[:B].sum())} pruned": (w, h, mask[:B].contiguous()),
+            "64 contiguous": (w, h, head),
+            "all 128": (w, h, torch.ones(B, dtype=torch.bool, device=DEV))}
+
+
+def time_k4(iters: int = 50) -> tuple[dict, dict]:
+    """K4 at the three tiles of ``k4_tiles`` (R 2048, one 128-column block,
+    f32): the profiler's device time per launch, CUDA events around the
+    kernel, its plain version and the yardstick ``k4_yardstick`` in the
+    order plain, kernel, yardstick, yardstick, kernel, plain; then the
+    whole sweep of a (2048, 5632) view on the kernel path vs the plain
+    sweep, with the kernels of one sweep from the profiler (no copy kernel
+    may run once a column block)."""
+    R, B = 2048, k4.BLOCK
+    tiles = {}
+    for label, (w, h, m) in k4_tiles(R).items():
+        o, e = torch.empty_like(w), torch.empty_like(w)
+        kern = (lambda i, w=w, h=h, m=m, o=o, e=e:
+                k4.inblock_sweep_kernel(w, h, m, out=o, e_out=e))
+        plain = lambda i, w=w, h=h, m=m: k4.inblock_sweep_plain(
+            w[None], h[None], m)
+        lib = k4_yardstick(w, h, m)
+        kw, ke = kern(0)
+        pw, pe = plain(0)
+        lw, _ = lib(0)
+        torch.cuda.synchronize()
+        max_err = max(float((kw - pw[0]).abs().max()),
+                      float((ke - pe[0]).abs().max()))
+        lib_err = float((lw - pw[0]).abs().max())
+        plain_a = time_ms(plain, iters=5, warmup=1)
+        kern_a = time_ms(kern, iters=iters)
+        lib_a = time_ms(lib, iters=iters)
+        lib_b = time_ms(lib, iters=iters)
+        kern_b = time_ms(kern, iters=iters)
+        plain_b = time_ms(plain, iters=5, warmup=1)
+        device = kernel_device_ms(kern, "inblock_sweep_kernel", iters)
+        lib_prof = device_profile(lib, iters)
+        nbytes, flops = inblock_work(R, m)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_flops = flops / PEAK_FLOPS[torch.float32] * 1e3
+        bound = max(t_bytes, t_flops)
+        t = {"pruned_columns": int(m.sum()), "device_ms": device,
+             "event_ms": (kern_a + kern_b) / 2,
+             "plain_ms": (plain_a + plain_b) / 2, "bound_ms": bound,
+             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+             "bytes": nbytes, "flops": flops, "max_abs_err": max_err,
+             "yardstick_device_ms": None if lib_prof is None
+             else lib_prof["ms"], "yardstick_event_ms": (lib_a + lib_b) / 2,
+             "yardstick_max_abs_err": lib_err}
+        tiles[label] = t
+        dev_txt = "not measured" if device is None else (
+            f"{device:.4f} ms, {bound / device:.1%} of the bound")
+        yd = t["yardstick_device_ms"]
+        print(f"  obspa_sweep.inblock {label} (R={R}, 128 columns): device "
+              f"{dev_txt} | events {t['event_ms']:.4f} ms | plain "
+              f"{t['plain_ms']:.4f} ms | library none | bound {bound:.5f} ms "
+              f"({t['bound_by']}; {nbytes / 1e6:.3f} MB, {flops / 1e6:.1f} "
+              f"MFLOP) | max abs err {max_err:.2e} | solve_triangular + "
+              f"addmm: device "
+              f"{'not measured' if yd is None else f'{yd:.4f} ms'}, events "
+              f"{t['yardstick_event_ms']:.4f} ms, max abs err vs plain "
+              f"{lib_err:.2e}", flush=True)
+    main = tiles[next(iter(tiles))]
     entry = {
         "name": "obspa_sweep.inblock", "route": "cuda", "source": K4_SOURCE,
-        "replaces": K4_REPLACES, "launches": 0, "max_abs_err": max_err,
-        "ms": (kern_a + kern_b) / 2, "plain_ms": (plain_a + plain_b) / 2,
-        "bound_ms": max(t_bytes, t_flops),
-        "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-        "library_ms": None,
+        "replaces": K4_REPLACES, "launches": 0,
+        "max_abs_err": main["max_abs_err"],
+        "ms": main["event_ms"] if main["device_ms"] is None
+        else main["device_ms"],
+        "ms_from": "events" if main["device_ms"] is None else "profiler",
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": None,
         "shape": {"R": R, "block": B, "pruned_columns":
-                  int(tiles[0][2].sum()), "dtype": "float32"},
-        "bytes": nbytes, "flops": flops, "device_ms": device,
+                  main["pruned_columns"], "dtype": "float32"},
+        "plan": k4.plan(R)._asdict(), "tiles": tiles,
     }
-    print(f"  {entry['name']} (R={R}, 128 columns, "
-          f"{entry['shape']['pruned_columns']} pruned): kernel "
-          f"{entry['ms']:.4f} ms | plain {entry['plain_ms']:.4f} ms | "
-          f"library none | bound {entry['bound_ms']:.5f} ms "
-          f"({entry['bound_by']}) | max abs err {max_err:.2e} | device time "
-          f"per launch (profiler) "
-          f"{'not measured' if device is None else f'{device:.4f} ms'}",
-          flush=True)
+
+    W, Hinv, mask = sweep_case(7, R, 5632, 0.5)
     sweep = {"shape": [R, 5632], "pruned_columns": int(mask.sum())}
     k4_path = lambda i: k4.obspa_sweep(W, Hinv, mask)
     plain_path = lambda i: k4.sweep_plain(W, Hinv, mask)
@@ -1261,12 +1396,25 @@ def time_k4(iters: int = 50) -> tuple[dict, dict]:
     ka = time_ms(k4_path, iters=5, warmup=1)
     kb = time_ms(k4_path, iters=5, warmup=1)
     pb = time_ms(plain_path, iters=2, warmup=1)
+    prof = device_profile(k4_path, 3)
+    per = {} if prof is None else prof["launches_per_call"]
+    blocks = 5632 // B
+    copies = {k: n for k, n in per.items() if "copy" in k.lower()}
     sweep.update({"k4_path_ms": (ka + kb) / 2, "plain_sweep_ms": (pa + pb) / 2,
-                  "k4_launches_per_sweep": 5632 // B})
+                  "k4_launches_per_sweep": blocks,
+                  "device_ms": None if prof is None else prof["ms"],
+                  "kernels_per_sweep": per})
+    dev_txt = "not measured" if prof is None else f"{prof['ms']:.3f} ms"
     print(f"  whole sweep R=2048 K=5632: K4 path {sweep['k4_path_ms']:.3f} ms"
-          f" (44 K4 launches + 43 panel GEMMs) | plain unblocked sweep "
+          f" (events; device {dev_txt}; {blocks} K4 launches + {blocks - 1} "
+          f"panel GEMMs in place) | plain unblocked sweep "
           f"{sweep['plain_sweep_ms']:.3f} ms", flush=True)
-    del tiles, outs, W, Hinv
+    for k, n in sorted(per.items(), key=lambda kv: -kv[1]):
+        print(f"    {n:3d} a sweep: {k[:110]}", flush=True)
+    if any(n >= blocks - 1 for n in copies.values()):
+        raise AssertionError(f"a copy kernel runs once a column block: "
+                             f"{copies}")
+    del W, Hinv
     torch.cuda.empty_cache()
     return entry, sweep
 
@@ -2606,9 +2754,11 @@ def main() -> int:
     k3_build = build_report("ssd_scan", "K3")
     if k3_build["sass"] and not k3_build["sass"]["HMMA"]:
         raise AssertionError("K3's SASS holds no HMMA (mma.sync) instruction")
-    spilled = [k["name"] for k in k3_build["kernels"] if k["spill_bytes"]]
+    k4_build = build_report("obspa_update", "K4")
+    spilled = [k["name"] for k in k3_build["kernels"] + k4_build["kernels"]
+               if k["spill_bytes"]]
     if spilled:
-        raise AssertionError(f"K3 instances spill registers: {spilled}")
+        raise AssertionError(f"K3 / K4 instances spill registers: {spilled}")
 
     worst = phase_kernel_checks(rng, args.seed)
     print("phase 3b: kernel times at the main path's shapes (bf16)",
@@ -2620,7 +2770,7 @@ def main() -> int:
                     prefill=True, iters=12),
     ]
     k4_rel = phase_k4_checks()
-    print("phase 6b: K4 time at the main path's shape (f32)", flush=True)
+    print("phase 6b: K4 time at the main path's tiles (f32)", flush=True)
     k4_entry, k4_sweep = time_k4()
     main_res = phase_main_path(rng, args.quick, args.profile)
     kernels[0]["launches"] = main_res["k1_launches"]["decode"]
@@ -2632,6 +2782,7 @@ def main() -> int:
     prune_res = phase_prune_path(rng, args.quick)
     k4_entry["launches"] = prune_res["k4_launches"]
     k4_entry["max_rel_err_vs_oracle"] = k4_rel
+    k4_entry["build"] = build_summary(k4_build)
     kernels.append(k4_entry)
     k3_rel = phase_k3_checks()
     print("phase 8b: K3 time at the full-width and two pruned forwards' "
@@ -2660,7 +2811,8 @@ def main() -> int:
 
     print(json.dumps({"builds": {"paged_attention": k1_build,
                                  "flash_attention": k2_build,
-                                 "ssd_scan": k3_build}}))
+                                 "ssd_scan": k3_build,
+                                 "obspa_update": k4_build}}))
     print(json.dumps({"main_path": main_res}))
     print(json.dumps({"device_code_ms": dev_res}))
     print(json.dumps({"prune_path": prune_res, "k4_sweep": k4_sweep}))

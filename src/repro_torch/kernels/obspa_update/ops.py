@@ -5,9 +5,10 @@ GEMM per block — the reference's ``ops.py`` decomposition.
 Dispatch: CUDA tensors go to the CUDA kernel, which launches or raises; CPU
 tensors go to the plain version (``ref.inblock_sweep_plain``) — only because
 they lie on the CPU.  On the card the sweep runs in place on a padded f32
-copy of W, one column block at a time.  The compensation GEMM is
-``torch.matmul`` with TF32 off, as the reference leaves it to XLA outside its
-Pallas kernel.
+copy of W, one column block at a time, with one E buffer for all blocks.
+The compensation GEMM is ``baddbmm_`` into the rest of that copy (no
+temporary of the rest's size) with TF32 off, as the reference leaves it to
+XLA outside its Pallas kernel.
 """
 from __future__ import annotations
 
@@ -33,17 +34,20 @@ def full_f32_matmul():
 
 
 def inblock_sweep(w: torch.Tensor, hinv: torch.Tensor, mask: torch.Tensor,
-                  out: torch.Tensor | None = None
+                  out: torch.Tensor | None = None,
+                  e_out: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """One column block: the kernel on CUDA tensors, the plain version on
     CPU tensors — both held to the kernel's argument contract.  Shapes as
     ``inblock_sweep_kernel``."""
     if w.is_cuda:
-        return inblock_sweep_kernel(w, hinv, mask, out=out)
-    w3, h3, o3 = check_args(w, hinv, mask, out)
+        return inblock_sweep_kernel(w, hinv, mask, out=out, e_out=e_out)
+    w3, h3, o3, e3 = check_args(w, hinv, mask, out, e_out)
     new, e = ref.inblock_sweep_plain(w3, h3, mask)
     if o3 is not None:
         new = o3.copy_(new)
+    if e3 is not None:
+        e = e3.copy_(e)
     return (new[0], e[0]) if w.ndim == 2 else (new, e)
 
 
@@ -66,14 +70,17 @@ def obspa_sweep_batched(W: torch.Tensor, Hinv: torch.Tensor,
         mask = torch.cat([mask, mask.new_zeros(pad)])
     else:   # row-major: torch.linalg.inv returns column-major results
         Hp = Hinv.to(torch.float32).contiguous()
+        if Hp.data_ptr() % 16:      # the kernel copies rows 16 bytes a time
+            Hp = Hp.clone()
+    e_blk = torch.empty((nb, R, BLOCK), dtype=torch.float32, device=dev)
     with full_f32_matmul():
         for b0 in range(0, Kp, BLOCK):
             blk = slice(b0, b0 + BLOCK)
-            _, e_blk = inblock_sweep(Wp[:, :, blk], Hp[:, blk, blk],
-                                     mask[blk], out=Wp[:, :, blk])
+            inblock_sweep(Wp[:, :, blk], Hp[:, blk, blk], mask[blk],
+                          out=Wp[:, :, blk], e_out=e_blk)
             if b0 + BLOCK < Kp:
-                Wp[:, :, b0 + BLOCK:] -= torch.matmul(
-                    e_blk, Hp[:, blk, b0 + BLOCK:])
+                Wp[:, :, b0 + BLOCK:].baddbmm_(
+                    e_blk, Hp[:, blk, b0 + BLOCK:], alpha=-1)
     return Wp[:, :, :K] if pad else Wp
 
 

@@ -39,9 +39,11 @@ def inblock_sweep_plain(w: torch.Tensor, hinv: torch.Tensor,
     """One column block.  w (nb, R, B), hinv (nb or 1, B, B), mask (B,).
 
     Returns (updated w, errors E), both (nb, R, B) in f32 — what the kernel
-    computes.  Columns whose mask is 0 change nothing and are skipped."""
-    w = w.float().clone()
-    hinv = hinv.float()
+    computes — or in float64 when w is float64 (the oracle run).  Columns
+    whose mask is 0 change nothing and are skipped."""
+    dt = w.dtype if w.dtype == torch.float64 else torch.float32
+    w = w.to(dt).clone()
+    hinv = hinv.to(dt)
     e = torch.zeros_like(w)
     for j in _pruned_columns(mask):
         err = w[:, :, j] / hinv[:, j, j][:, None]                 # (nb, R)

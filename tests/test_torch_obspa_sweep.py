@@ -162,3 +162,51 @@ def test_cuda_kernel_vs_plain_on_the_card(cuda_device):
                                  args[1][:, :BLOCK, :BLOCK], args[2][:BLOCK])
     assert float((w - pw).abs().max()) < 1e-4
     assert float((e - pe).abs().max()) < 1e-4
+
+
+def edge_case(name):
+    """The design's edge cases of one block (W (nb, R, 128), Hinv (1 or nb,
+    128, 128), mask), numpy, as ``test_torch_obspa_sweep_design`` models
+    them."""
+    if name.startswith("R "):
+        R = int(name[2:])
+        W, Hinv, mask = make_case(R, R, BLOCK, 0.5)
+        return W[None], Hinv[None], mask
+    if name == "nb 4 shared Hinv":
+        W, _, mask = make_case(8, 24, BLOCK, 0.5, nb=4)
+        return W, make_case(9, 4, BLOCK, 0.5)[1][None], mask
+    W, Hinv, _ = make_case(5, 70, BLOCK, 0.0)
+    mask = np.zeros(BLOCK, bool)
+    mask[{"none": [], "one": [37], "64 contiguous": list(range(64, BLOCK)),
+          "all 128": list(range(BLOCK)), "first alone": [0],
+          "last alone": [BLOCK - 1]}[name]] = True
+    return W[None], Hinv[None], mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", [
+    "none", "one", "64 contiguous", "all 128", "first alone", "last alone",
+    "R 1", "R 17", "R 2051", "nb 4 shared Hinv"])
+def test_cuda_kernel_edge_cases_on_the_card(cuda_device, name):
+    """W and E against float64 and the plain version within 1e-4 (of the
+    oracle's largest value; W's residue against the input's when every
+    column is pruned), two calls and the sweep in place bitwise equal."""
+    W, Hinv, mask = [torch.from_numpy(a).to(cuda_device)
+                     for a in edge_case(name)]
+    kw, ke = inblock_sweep_kernel(W, Hinv, mask)
+    kw2, ke2 = inblock_sweep_kernel(W, Hinv, mask)
+    ip = W.clone()
+    iw, ie = inblock_sweep_kernel(ip, Hinv, mask, out=ip)
+    for a, b in ((kw, kw2), (ke, ke2), (iw, kw), (ie, ke)):
+        assert torch.equal(a, b)
+    pw, pe = inblock_sweep_plain(W, Hinv, mask)
+    gw, ge = inblock_sweep_plain(W.double(), Hinv.double(), mask)
+    sw = (W if bool(mask.all()) else gw).abs().max().item()
+    for ref in (gw, pw.double()):
+        assert (kw.double() - ref).abs().max().item() < RTOL * sw
+    if bool(mask.any()):
+        for ref in (ge, pe.double()):
+            assert (ke.double() - ref).abs().max().item() < \
+                RTOL * ge.abs().max().item()
+    else:
+        assert not ke.any()
