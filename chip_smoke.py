@@ -57,13 +57,15 @@ nothing of JAX or of the JAX package.  Phases:
     then (8b) its time at the full-width and pruned shapes beside the plain
     version and two bounds (the f32 CUDA cores', and the tensor cores' for
     the split-TF32 passes);
- 9. the main path of the ssm family at full width: ``mamba2-1.3b`` (48
-    layers, d 2048, 64 SSM heads x 64, state 128, bf16, random weights from
-    a seed) — ``Model.forward`` on K3 against the plain scan, 16 requests
-    served by ``Engine`` (a third behind a shared prefix that must not be
-    aliased), every served token checked by teacher forcing through
-    ``Model.forward`` (K3); then SPA-pruned by magnitude (L1) at ratio 0.5
-    on the card and the same checks on the pruned model;
+ 9. the main path of the ssm family at full width: ``mamba2-1.3b`` (cut to
+    24 of its 48 layers; d 2048, 64 SSM heads x 64, state 128, bf16, random
+    weights from a seed) — ``Model.forward`` on K3 against the plain scan,
+    16 requests served by ``Engine`` (a third behind a shared prefix that
+    must not be aliased), every served token checked by teacher forcing
+    through ``Model.forward`` (K3); then SPA-pruned by magnitude (L1) at
+    ratio 0.5 on the card and the same checks on the pruned model; then
+    OBSPA-pruned at ratio 0.5 with data-free calibration (K4 on
+    ``ssm.w_out``) and the same checks again;
 10. the flash-attention kernel K2 against its plain PyTorch version (the
     reference's six test shapes, the main path's 8 x 512 TinyLlama shape
     and its pruned D 64 / DV 32 form, a length that is not a multiple of
@@ -85,7 +87,25 @@ nothing of JAX or of the JAX package.  Phases:
     plain attention, held to the plain version's own rounding spread (the
     mean per-token |CE bf16 - CE f32 twin|); RF/RP, step time, tokens/s
     and peak memory of each; and a checkpoint-and-restart drill
-    (``run_with_restarts``) at the reduced config.
+    (``run_with_restarts``) at the reduced config;
+12. the hybrid family at full width: ``hymba-1.5b`` (32 layers, d 1600,
+    25 query heads over 5 KV heads of 64, window 1024 except on layers 0,
+    15 and 31, 50 SSM heads x 64, state 16, bf16, random weights from a
+    seed), attention and SSD heads in parallel in every layer, so K1, K2
+    and K3 run in one model — 16 requests of 256-1600 tokens served (four
+    longer than the window), K1's visit counts held to the liveness
+    predicate at each layer's window and shown below the unwindowed counts;
+    each layer's attention half (K2) and SSD half (K3) against their plain
+    versions in bf16, the model cut to 2 layers served in bf16, the float32
+    twin served at full depth, all checked by teacher forcing; then
+    L1-pruned and OBSPA-pruned (K4) at ratio 0.5 on the card, each checked
+    the same way, with every reconstructed consumer's layer-output error
+    against plain slicing recorded, and the four kernels' launches held to
+    their formulas.
+
+Phases 3, 8 and 10 also hold K1, K3 and K2 at Hymba's shapes (G = 5, the
+window of 1024 over 2048 tokens, 50 SSM heads x 64 x state 16) and at the
+widths pruning leaves.
 
 Every full-sequence ``Model.forward`` / ``Model.loss`` of an attention model
 on the card runs K2 (teacher forcing in phases 4 and 7, every evaluation in
@@ -96,8 +116,8 @@ The kernels are built in parallel (one ``nvcc`` per source).  Any failing
 phase raises, so the exit code is non-zero and no ``"ok"`` line
 is printed.  TF32 is off for matmuls and cuDNN throughout.
 
-``--quick`` cuts phases 4, 7, 9 and 11 to 4 layers and a few requests or
-steps (for a first look at a new kernel); ``--profile`` adds a
+``--quick`` cuts phases 4, 7, 9, 11 and 12 to 4 layers and a few requests
+or steps (for a first look at a new kernel); ``--profile`` adds a
 ``torch.profiler`` trace of one decode and one prefill step (device busy
 share, K1's time per step, top kernels).  The default is the full run without the trace.
 """
@@ -144,8 +164,10 @@ from repro_torch.kernels.paged_attention.paged_attention import (  # noqa: E402
     sm_count as k1_sm_count)
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models.attention import _scatter_kv  # noqa: E402
+from repro_torch.models.attention import (  # noqa: E402
+    attention_block as attn_block)
 from repro_torch.models import transformer as tf  # noqa: E402
-from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.models.layers import rms_norm, swiglu  # noqa: E402
 from repro_torch.models.ssm import ssd_reference, ssm_block  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 from repro_torch.train.loop import (  # noqa: E402
@@ -494,6 +516,36 @@ def phase_kernel_checks(rng, seed: int) -> float:
                   kv_lens=[2048, 0, 1])
     worst = max(worst, check_case("decode 2048 | 0 | 1 bf16 window 300", c,
                                   window=300))
+
+    # Hymba-1.5B's shapes (phase 12): G = 5 (25 query heads over 5 KV heads
+    # of 64), its window of 1024 over histories up to 2048 (decode splits
+    # that lie wholly below the window add nothing; prefill chunks start on
+    # both sides of it), its global layers (window 0), and the heads that
+    # pruning at 0.5 leaves (15 over 3, DV 32).  Own generator, as above.
+    rng = np.random.default_rng([seed, 12])
+    bf16, f32 = torch.bfloat16, torch.float32
+    for tag, hy in (("hymba", dict(B=16, H=25, KH=5, D=64, DV=64, bs=16,
+                                    NB=128)),
+                    ("hymba pruned", dict(B=16, H=15, KH=3, D=64, DV=32,
+                                          bs=16, NB=128))):
+        hl = ragged(rng, 16, 1, 2048)
+        hl[:4] = (2048, 1025, 1024, 1)
+        hst = np.asarray([0, 128, 512, 896, 1024, 1040, 1152, 1280, 1536,
+                          1664, 1792, 1900, 1920, 0, 256, 640], np.int32)
+        hva = ragged(rng, 16, 1, 128)
+        hva[0], hva[13] = 128, 0                  # a full chunk, an idle row
+        runs = [(bf16, 1024, False), (bf16, 1024, True)]
+        if tag == "hymba":
+            runs += [(f32, 1024, False), (f32, 1024, True), (bf16, 0, False),
+                     (bf16, 0, True)]
+        for dt, win, pre in runs:
+            c = make_case(rng, C=128 if pre else 1, q_dtype=dt, pool=dt,
+                          kv_lens=hst + hva if pre else hl,
+                          q_starts=hst if pre else None, **hy)
+            worst = max(worst, check_case(
+                f"{tag} {'prefill C=128' if pre else 'decode'} "
+                f"{str(dt)[6:]} window {win}", c, window=win, prefill=pre,
+                valid=hva if pre else None))
     return worst
 
 
@@ -1653,6 +1705,15 @@ def phase_k3_checks() -> float:
         f"large dt (dt 1..4, A -1..-16, Q={Q}), finite", Q,
         ssd_case(220, **d, x_dtype=f32, bc_dtype=bf16, dt_lo=1.0,
                  dt_span=3.0, model_A=True)))
+    # Hymba-1.5B's SSD heads (phase 12): 50 x 64 with state 16, B/C bf16
+    # and (its float32 twin) f32, and the widths pruning at 0.5 leaves
+    for i, (label, h, p, n, bc) in enumerate((
+            ("hymba", 50, 64, 16, bf16), ("hymba", 50, 64, 16, f32),
+            ("hymba pruned", 25, 32, 8, bf16))):
+        worst = max(worst, check_ssd(
+            f"{label} (2, 2048, {h}, {p}, {n}) Q=128 x f32, B/C "
+            f"{str(bc)[6:]}", 128,
+            ssd_case(230 + i, 2, 2048, h, p, n, x_dtype=f32, bc_dtype=bc)))
     return worst
 
 
@@ -1828,12 +1889,16 @@ def blocks_vs_plain(model, params) -> dict:
             "per_layer": errs}
 
 
-def forward_vs_plain(model, params) -> dict:
-    """``Model.forward`` on K3 against the plain scan (``use_kernels=False``)
-    on 2 x 512 tokens: the max logit difference, beside the same plain
-    forward with chunk 64 instead of 128 — a change of rounding only, which
-    measures how far this model's logits move under rounding alone."""
-    batch = model.dummy_batch(2, 512, seed=11)
+def forward_vs_plain(model, params, seq: int = 512,
+                     f32_twin: bool = False) -> dict:
+    """``Model.forward`` on the kernels (K3; K2 too for a hybrid) against the
+    plain versions (``use_kernels=False``) on 2 x ``seq`` tokens: the max
+    logit difference, beside the same plain forward with SSM chunk 64
+    instead of 128 — a change of rounding only, which measures how far this
+    model's logits move under rounding alone.  ``f32_twin`` adds the
+    distance (max and mean) of each from the plain float32 forward of the
+    same weights, which says which of the two rounds further."""
+    batch = model.dummy_batch(2, seq, seed=11)
     cfg = model.cfg
     with torch.no_grad():
         a = model.forward(params, batch).float()
@@ -1841,15 +1906,23 @@ def forward_vs_plain(model, params) -> dict:
                                                           batch).float()
         c = build(cfg.replace(use_kernels=False, ssm_chunk=64)).forward(
             params, batch).float()
+        f = None if not f32_twin else build(cfg.replace(
+            dtype="float32", use_kernels=False)).forward(
+                f32_tree(params), batch).float()
     if not torch.isfinite(a).all():
         raise AssertionError(f"{cfg.dtype} forward on K3: non-finite logits")
-    return {"k3_vs_plain": float((a - b).abs().max()),
-            "plain_vs_plain_chunk64": float((b - c).abs().max()),
-            "plain_max_abs": float(b.abs().max()),
-            "argmax_agreement_k3_plain": float(
-                (a.argmax(-1) == b.argmax(-1)).float().mean()),
-            "argmax_agreement_plain_chunk64": float(
-                (b.argmax(-1) == c.argmax(-1)).float().mean())}
+    res = {"k3_vs_plain": float((a - b).abs().max()),
+           "plain_vs_plain_chunk64": float((b - c).abs().max()),
+           "plain_max_abs": float(b.abs().max()),
+           "argmax_agreement_k3_plain": float(
+               (a.argmax(-1) == b.argmax(-1)).float().mean()),
+           "argmax_agreement_plain_chunk64": float(
+               (b.argmax(-1) == c.argmax(-1)).float().mean())}
+    if f is not None:
+        for name, x in (("kernels", a), ("plain", b)):
+            res[f"{name}_vs_f32_max"] = float((x - f).abs().max())
+            res[f"{name}_vs_f32_mean"] = float((x - f).abs().mean())
+    return res
 
 
 def serve_and_force(model, params, reqs, scfg) -> dict:
@@ -1891,7 +1964,7 @@ def check_mamba2(label, model, params, reqs, scfg) -> tuple[dict, int]:
     """Forward and serve checks of one model: in bf16 (the deployment type)
     layer by layer and at full depth, in bf16 cut to its first
     SHALLOW_LAYERS layers, and in float32 on the same weights.  At random
-    init this 48-layer model amplifies rounding (one bf16 step in an early
+    init this deep model amplifies rounding (one bf16 step in an early
     layer grows to logit moves of ~2 by the last), so at full depth in bf16
     the forward is held against the plain version's own rounding spread; the
     sharp bf16 checks run where rounding has not grown (each block alone,
@@ -1971,13 +2044,17 @@ def check_mamba2(label, model, params, reqs, scfg) -> tuple[dict, int]:
     return res, launches
 
 
+MAMBA2_LAYERS = 24
+
+
 def phase_mamba2_path(rng, quick: bool) -> dict:
     print("phase 9: main path of the ssm family — mamba2-1.3b served, "
-          "SPA-pruned (L1) and served again; teacher forcing through K3",
-          flush=True)
-    cfg = get_config("mamba2-1.3b")
-    if quick:
-        cfg = cfg.replace(num_layers=4)
+          "SPA-pruned (L1) and OBSPA-pruned (K4), each served again; "
+          "teacher forcing through K3", flush=True)
+    # cut to MAMBA2_LAYERS of its 48 layers (full width) since phase 12
+    # joined the script, to keep it within its time (PERF.md §5)
+    cfg = get_config("mamba2-1.3b").replace(
+        num_layers=4 if quick else MAMBA2_LAYERS)
     L = cfg.num_layers
     model = build(cfg)
     t0 = time.time()
@@ -1995,9 +2072,35 @@ def phase_mamba2_path(rng, quick: bool) -> dict:
            "serve_config": dataclasses.asdict(scfg)}
     t_path = time.time()
     k3.reset_launches()                      # counts = this path's only
+    k4.reset_launches()
     reset_launches()
     expected = 0
-    for label in ("dense", "pruned"):
+    dense_model, dense_params = model, params
+    calib = batches(cfg, "datafree", 4, 4, 512, seed=5)
+    for label in ("dense", "pruned", "obspa"):
+        if label == "obspa":
+            pr, rep = obspa_on_card(dense_model, dense_params, calib)
+            pc = pr.cfg
+            rep["pruned_cfg"] = {"ssm_heads": pc.ssm_n_heads,
+                                 "ssm_head_dim": pc.ssm_head_dim,
+                                 "ssm_state": pc.ssm_state,
+                                 "params": n_params(pr.params)}
+            print_prune("obspa prune", {"ssm_heads": cfg.ssm_n_heads,
+                                        "ssm_head_dim": cfg.ssm_head_dim,
+                                        "ssm_state": cfg.ssm_state,
+                                        "params": res["params"]},
+                        rep["pruned_cfg"], rep)
+            # the CPU test's reduced pins (8, 16, 16) -> (4, 8, 8), scaled
+            if (pc.ssm_n_heads, pc.ssm_head_dim, pc.ssm_state) != (
+                    K3_PRUNED["h"], K3_PRUNED["p"], K3_PRUNED["n"]) or \
+                    pc.d_model != cfg.d_model:
+                raise AssertionError(f"unexpected OBSPA-pruned config {pc}")
+            if rep["k4_launches"] != obspa_blocks(cfg):
+                raise AssertionError(f"K4 launches {rep['k4_launches']} != "
+                                     f"{obspa_blocks(cfg)} column blocks")
+            res["obspa_prune"] = rep
+            model, params = build(pc), pr.params
+            del pr
         if label == "pruned":
             torch.cuda.reset_peak_memory_stats()
             t0 = time.time()
@@ -2037,10 +2140,14 @@ def phase_mamba2_path(rng, quick: bool) -> dict:
         res[label], n = check_mamba2(label, model, params, reqs, scfg)
         expected += n
     torch.cuda.synchronize()
+    del dense_model, dense_params
     launches = k3.launch_count()
     res["wall_s"] = time.time() - t_path
     res["k3_launches"] = launches
     res["k1_launches"] = launch_counts()["total"]
+    res["k4_launches"] = k4.launch_count()
+    if res["k4_launches"] != res["obspa_prune"]["k4_launches"]:
+        raise AssertionError("K4 launched outside the OBSPA prune")
     if launches != expected or res["k1_launches"]:
         raise AssertionError(f"K3 launches {launches} != {expected} (one per "
                              f"layer of every forward on the card, one per "
@@ -2096,6 +2203,15 @@ K2_OFFSET_SHAPES = [
     (2, 256, 8, 2, 64, 64, True, 0, torch.bfloat16),
     (1, 200, 4, 1, 48, 20, False, 0, torch.bfloat16),
 ]
+# Hymba-1.5B's attention (phase 12): G = 5, one head a block; its window of
+# 1024 at S 2048 (key tiles wholly below a row's window are skipped) and
+# its global layers; the float32 twin; the heads pruning at 0.5 leaves
+K2_HYMBA_SHAPES = [
+    (2, 2048, 25, 5, 64, 64, True, 1024, torch.bfloat16),
+    (2, 2048, 25, 5, 64, 64, True, 0, torch.bfloat16),
+    (2, 2048, 25, 5, 64, 64, True, 1024, torch.float32),
+    (2, 2048, 15, 3, 64, 32, True, 1024, torch.bfloat16),
+]
 
 
 def k2_case(seed, B, S, H, KH, D, DV, dtype, offset: int = 0):
@@ -2138,7 +2254,8 @@ def phase_k2_checks() -> float:
     print("phase 10: flash-attention kernel (K2) vs plain PyTorch version",
           flush=True)
     main_err = 0.0
-    cases = [(s, 0) for s in K2_SHAPES] + [(s, 1) for s in K2_OFFSET_SHAPES]
+    cases = [(s, 0) for s in K2_SHAPES] + [(s, 1) for s in K2_OFFSET_SHAPES] \
+        + [(s, 0) for s in K2_HYMBA_SHAPES]
     for i, (shape, offset) in enumerate(cases):
         B, S, H, KH, D, DV, causal, window, dt = shape
         q, k, v = k2_case(300 + i, B, S, H, KH, D, DV, dt, offset)
@@ -2691,11 +2808,408 @@ def pruned_dims(c) -> dict:
             "d_ff": c.d_ff, "params": c.param_count()}
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the hybrid family (Hymba) — K1, K2 and K3 in one model, then L1
+# and OBSPA (K4) pruning, each model served and checked again
+# ---------------------------------------------------------------------------
+
+# SPA at ratio 0.5 on Hymba-1.5B's structure: KV groups 5 -> 3 (each with its
+# G = 5 query heads), v_head_dim 64 -> 32, d_ff 5504 -> 2752, SSM heads
+# 50 -> 25, SSM head_dim 64 -> 32, state 16 -> 8 (the same widths for L1
+# and OBSPA; phases 3, 8 and 10 check the kernels at them)
+HYMBA_PRUNED = dict(n_heads=15, n_kv_heads=3, head_dim=64, v_head_dim=32,
+                    d_ff=2752, ssm_heads=25, ssm_head_dim=32, ssm_state=8)
+HYBRID_SEQ = 1600           # > the window of 1024: the window cuts
+
+
+def hybrid_dims(c) -> dict:
+    return {"n_heads": c.n_heads, "n_kv_heads": c.n_kv_heads,
+            "head_dim": c.head_dim_, "v_head_dim": c.v_head_dim_,
+            "d_ff": c.d_ff, "ssm_heads": c.ssm_n_heads,
+            "ssm_head_dim": c.ssm_head_dim, "ssm_state": c.ssm_state}
+
+
+def hybrid_requests(rng, vocab, n, gen, n_long) -> list[dict]:
+    """``make_requests`` over prompts of 256-1600 tokens (a third behind a
+    shared 256-token prefix, which must alias nothing), then ``n_long`` of
+    the independent ones redrawn at 1200-1600 tokens, so that the window
+    of 1024 cuts in prefill (a chunk from 1152 on no longer sees block 0)
+    and in decode."""
+    reqs = make_requests(rng, vocab, n, gen, 256, 1600, 256)
+    for i in [j for j in range(n) if j % 3][:n_long]:
+        length = int(rng.integers(1200, 1601))
+        reqs[i]["prompt"] = rng.integers(0, vocab, size=length).tolist()
+    return reqs
+
+
+class VisitRecorder:
+    """Within ``with``, every paged-attention call of the model returns its
+    kernel's per-(sequence, kv-head) visit counts beside its output (the
+    kernel counts them on every launch; only the return changes), which are
+    kept with the call's windows, starts and lengths."""
+
+    def __init__(self):
+        from repro_torch.models import attention as attn_mod
+        self.mod, self.calls = attn_mod, []
+
+    def __enter__(self):
+        self.real = (self.mod.paged_attention,
+                     self.mod.paged_prefill_attention)
+        decode, prefill = self.real
+
+        def spy_decode(q, k, v, tables, kv_lens, **kw):
+            out, visits = decode(q, k, v, tables, kv_lens,
+                                 return_visits=True, **kw)
+            self.calls.append(("decode", kw["window"], kv_lens - 1, kv_lens,
+                               tables.shape[1], k.shape[1], visits))
+            return out
+
+        def spy_prefill(q, k, v, tables, starts, kv_lens, **kw):
+            out, visits = prefill(q, k, v, tables, starts, kv_lens,
+                                  return_visits=True, **kw)
+            self.calls.append(("prefill", kw["window"], starts, kv_lens,
+                               tables.shape[1], k.shape[1], visits))
+            return out
+        self.mod.paged_attention = spy_decode
+        self.mod.paged_prefill_attention = spy_prefill
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.paged_attention, self.mod.paged_prefill_attention = \
+            self.real
+
+    def check(self, window: int) -> dict:
+        """Every call's visits equal ``expected_visits`` at its window; on
+        the windowed layers, count the rows whose window skipped blocks
+        (fewer visits than ``expected_visits`` without a window)."""
+        res = {"calls": len(self.calls), "windowed_calls": 0}
+        for entry in ("decode", "prefill"):
+            res[f"{entry}_rows_cut"] = 0
+            res[f"{entry}_blocks_skipped"] = 0
+        for entry, win, starts, lens, NB, bs, visits in self.calls:
+            if win not in (0, window):
+                raise AssertionError(f"a layer ran window {win}")
+            want = expected_visits(starts.cpu(), lens.cpu(), NB, bs, win)
+            got = visits.cpu()
+            if not torch.equal(got, want[:, None].expand_as(got)):
+                raise AssertionError(f"{entry} window {win}: K1 visits differ "
+                                     f"from expected_visits")
+            if win:
+                res["windowed_calls"] += 1
+                full = expected_visits(starts.cpu(), lens.cpu(), NB, bs, 0)
+                if (want > full).any():
+                    raise AssertionError("a window added visits")
+                res[f"{entry}_rows_cut"] += int((want < full).sum())
+                res[f"{entry}_blocks_skipped"] += int((full - want).sum())
+        if not (res["decode_rows_cut"] and res["prefill_rows_cut"]):
+            raise AssertionError(f"the window skipped no block: {res}")
+        return res
+
+
+def hybrid_blocks_vs_plain(model, params, seq: int = HYBRID_SEQ) -> dict:
+    """Every layer's attention half on K2 and SSD half on K3 against their
+    plain versions, on the input the plain forward gives that layer (2 x
+    ``seq`` tokens): max|Δ| / max|plain| per layer and half.  Launches K2
+    and K3 once per layer each."""
+    cfg = model.cfg
+    plain = cfg.replace(use_kernels=False)
+    toks = model.dummy_batch(2, seq, seed=12)["tokens"]
+    pos = torch.arange(seq, dtype=torch.int32, device=DEV)[None].expand(
+        2, seq)
+    errs = {"attention": [], "ssd": []}
+    with torch.no_grad():
+        h = params["tok_embed"][toks.long()]
+        for i, lp in enumerate(tf.unstack_layers(params,
+                                                 cfg.num_layers)["layers"]):
+            win = tf.layer_window(cfg, i)
+            mode = "sliding" if win else "causal"
+            hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+            a = attn_block(lp["attn"], cfg, hn, pos, mode, window=win)
+            a_p = attn_block(lp["attn"], plain, hn, pos, mode, window=win)
+            s = ssm_block(lp["ssm"], cfg, hn)
+            s_p = ssm_block(lp["ssm"], plain, hn)
+            if not (torch.isfinite(a).all() and torch.isfinite(s).all()):
+                raise AssertionError(f"layer {i}: non-finite K2 / K3 output")
+            errs["attention"].append(ssd_rel(a, a_p))
+            errs["ssd"].append(ssd_rel(s, s_p))
+            h = h + a_p + s_p
+            h = h + swiglu(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps))
+    return {k: {"max_rel": max(v), "worst_layer": int(np.argmax(v)),
+                "per_layer": v} for k, v in errs.items()}
+
+
+def check_hybrid(label, model, params, reqs, scfg, visits: bool = False
+                 ) -> tuple[dict, dict]:
+    """The checks of ``check_mamba2`` for a hybrid model: in bf16 each
+    layer's attention half (K2) and SSD half (K3) against their plain
+    versions, and the full-depth forward against the plain version's own
+    rounding spread; the model cut to its first SHALLOW_LAYERS layers
+    (layer 0 global, layer 1 windowed) served and held to two bf16 steps of
+    its largest logit; the float32 twin at full depth, served and held to
+    phases 4 and 7's teacher-forcing criterion.  ``visits`` records K1's
+    visit counts in the bf16 full-depth serve.  Returns (results, expected
+    launches {"k2", "k3"} of these checks)."""
+    res = {}
+    cfg = model.cfg
+    n = SHALLOW_LAYERS
+    blocks = hybrid_blocks_vs_plain(model, params)
+    print(f"  {label} bfloat16 layer by layer, 2 x {HYBRID_SEQ} tokens: "
+          f"attention on K2 vs plain max|Δ|/max|plain| "
+          f"{blocks['attention']['max_rel']:.2e} (layer "
+          f"{blocks['attention']['worst_layer']}), SSD on K3 vs plain "
+          f"{blocks['ssd']['max_rel']:.2e} (layer "
+          f"{blocks['ssd']['worst_layer']}); tol {BF16_BLOCK_TOL:.2e}, one "
+          f"bf16 step", flush=True)
+    launches = cfg.num_layers
+    variants = (("bfloat16", model, params),
+                (f"bfloat16 first {n} layers",
+                 build(cfg.replace(num_layers=n)), first_layers(params, n)),
+                ("float32", build(cfg.replace(dtype="float32")),
+                 f32_tree(params)))
+    for name, m, p in variants:
+        fwd = forward_vs_plain(m, p, seq=HYBRID_SEQ,
+                               f32_twin=m.cfg.num_layers == n)
+        rec = VisitRecorder() if visits and name == "bfloat16" else None
+        if rec is not None:
+            with rec:
+                r = serve_and_force(m, p, reqs, scfg)
+            r["k1_visits"] = rec.check(cfg.sliding_window)
+        else:
+            r = serve_and_force(m, p, reqs, scfg)
+        r["forward"], r["layers"] = fwd, m.cfg.num_layers
+        res[name] = r
+        launches += m.cfg.num_layers * (1 + r["forced_forwards"])
+        print(f"  {label} {name}: forward on K2 + K3 vs plain, 2 x "
+              f"{HYBRID_SEQ} tokens: max logit diff {fwd['k3_vs_plain']:.4f}"
+              f" (plain vs plain at SSM chunk 64: "
+              f"{fwd['plain_vs_plain_chunk64']:.4f}), argmax agreement "
+              f"{fwd['argmax_agreement_k3_plain']:.3f} "
+              f"({fwd['argmax_agreement_plain_chunk64']:.3f}) | served "
+              f"{r['requests']} x {r['gen']} tokens in {r['wall_s']:.2f}s, "
+              f"decode {r['decode_tok_per_s']:.1f} tok/s, prefill+decode "
+              f"{r['total_tok_per_s']:.1f} tok/s, mean TTFT "
+              f"{r['mean_ttft_s'] * 1e3:.1f} ms, {r['steps']:.0f} steps "
+              f"({r['decode_calls']:.0f} decode, {r['prefill_calls']:.0f} "
+              f"prefill calls), prefix hits {r['prefix_hits']}, peak "
+              f"{r['peak_mem_bytes'] / 2**30:.2f} GiB | teacher forcing vs "
+              f"Model.forward (K2 + K3): max logit shortfall "
+              f"{r['teacher_forced_shortfall']:.4f}, argmax agreement "
+              f"{r['argmax_agreement']:.3f}", flush=True)
+        if rec is not None:
+            print(f"  {label} K1 visits over {r['k1_visits']['calls']} calls "
+                  f"equal expected_visits at each layer's window; window "
+                  f"{cfg.sliding_window} skipped blocks on "
+                  f"{r['k1_visits']['decode_rows_cut']} decode rows and "
+                  f"{r['k1_visits']['prefill_rows_cut']} prefill rows "
+                  f"({r['k1_visits']['decode_blocks_skipped']} / "
+                  f"{r['k1_visits']['prefill_blocks_skipped']} (row, block) "
+                  f"visits fewer than without a window)", flush=True)
+    res["bfloat16_blocks"] = blocks
+    bf, sh, f32 = res["bfloat16"], res[f"bfloat16 first {n} layers"], \
+        res["float32"]
+    # The shallow model's served tokens are held to phase 9's limit.  Its
+    # forward is not: the plain attention rounds P to bf16 before P·V and K2
+    # keeps it to ~2^-17, so at 2 layers and 1600 tokens kernels and plain
+    # differ by more than two bf16 steps (PERF.md §6: K2 alone makes
+    # the difference, and the plain version is the one farther from the
+    # float32 twin).  The kernels' logits may move from the plain version's
+    # by no more than the plain version's own distance from float32.
+    sh_tol = BF16_SHALLOW_TOL * sh["forward"]["plain_max_abs"]
+    shf = sh["forward"]
+    print(f"  {label} bfloat16 first {n} layers: teacher-forced shortfall "
+          f"limit {BF16_SHALLOW_TOL:g} x max|logit| "
+          f"{shf['plain_max_abs']:.3f} = {sh_tol:.4f}; forward vs the "
+          f"float32 twin: kernels max {shf['kernels_vs_f32_max']:.4f} mean "
+          f"{shf['kernels_vs_f32_mean']:.6f} | plain max "
+          f"{shf['plain_vs_f32_max']:.4f} mean "
+          f"{shf['plain_vs_f32_mean']:.6f}", flush=True)
+    worst = max(blocks["attention"]["max_rel"], blocks["ssd"]["max_rel"])
+    if worst > BF16_BLOCK_TOL:
+        raise AssertionError(f"{label} bf16: a layer's half on its kernel "
+                             f"vs plain {worst} > {BF16_BLOCK_TOL}")
+    if sh["teacher_forced_shortfall"] > sh_tol:
+        raise AssertionError(f"{label} bf16, {n} layers: teacher-forced "
+                             f"shortfall {sh['teacher_forced_shortfall']} > "
+                             f"{sh_tol}")
+    if shf["k3_vs_plain"] > shf["plain_vs_f32_max"]:
+        raise AssertionError(f"{label} bf16, {n} layers: kernels vs plain "
+                             f"logits {shf['k3_vs_plain']} beyond the plain "
+                             f"version's own distance from the float32 twin "
+                             f"{shf['plain_vs_f32_max']}")
+    if bf["forward"]["k3_vs_plain"] > \
+            2 * bf["forward"]["plain_vs_plain_chunk64"] + 0.05:
+        raise AssertionError(f"{label} bf16: kernels vs plain beyond twice "
+                             f"the rounding spread: {bf['forward']}")
+    if f32["forward"]["k3_vs_plain"] > 0.02:
+        raise AssertionError(f"{label} float32: kernels vs plain logits "
+                             f"differ by {f32['forward']['k3_vs_plain']}")
+    if f32["teacher_forced_shortfall"] > 0.05:
+        raise AssertionError(f"{label} float32: teacher-forced shortfall "
+                             f"{f32['teacher_forced_shortfall']} > 0.05")
+    del variants
+    torch.cuda.empty_cache()
+    # K1: every layer of every device call of the three serves
+    k1 = sum(res[name]["layers"] * int(res[name]["decode_calls"]
+                                       + res[name]["prefill_calls"])
+             for name in ("bfloat16", f"bfloat16 first {n} layers",
+                          "float32"))
+    return res, {"k1": k1, "k2": launches, "k3": launches}
+
+
+def obspa_blocks(cfg) -> int:
+    """K4 launches of an OBSPA prune at ratio 0.5: one per 128-column block
+    of every reconstructed consumer — ``attn.wo`` (K = H·DV) and
+    ``mlp.w_down`` (K = d_ff) of an attention layer, ``ssm.w_out`` (K =
+    SSM heads · head_dim) of an SSD block."""
+    per_layer = 0
+    if cfg.family != "ssm":
+        per_layer += math.ceil(cfg.n_heads * cfg.v_head_dim_ / k4.BLOCK) \
+            + math.ceil(cfg.d_ff / k4.BLOCK)
+    if cfg.family == "ssm" or cfg.hybrid:
+        per_layer += math.ceil(cfg.ssm_n_heads * cfg.ssm_head_dim / k4.BLOCK)
+    return cfg.num_layers * per_layer
+
+
+def obspa_on_card(model, params, calib) -> tuple:
+    """``obspa_prune`` at ratio 0.5 timed (wall, by phase) with its peak
+    memory and K4 launches, then every reconstructed consumer's layer-output
+    error against plain slicing of the same columns (recorded: at about one
+    calibration token per column the method does not promise to beat
+    slicing).  Returns (PruneResult, report)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = k4.launch_count()
+    t0 = time.time()
+    pr = obspa_prune(model, params, 0.5, calib, calib_mode="datafree")
+    torch.cuda.synchronize()
+    rep = {"ratio": 0.5, "criterion": "obspa",
+           "calibration": f"datafree {len(calib)} x "
+                          f"{tuple(calib[0]['tokens'].shape)}, seed 5",
+           "wall_s": time.time() - t0, "seconds": pr.report["seconds"],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "k4_launches": k4.launch_count() - before,
+           "groups_with_obs": pr.report["groups_with_obs"],
+           "groups_total": pr.report["groups_total"]}
+    errs = layer_output_errors(model, params, pr, calib)
+    rep["layer_errors"] = {k: {"obspa": e_ob, "slicing": e_cut,
+                               "ratio": e_ob / e_cut}
+                           for k, (e_ob, e_cut) in errs.items()}
+    rep["all_below_slicing"] = all(e_ob < e_cut
+                                   for e_ob, e_cut in errs.values())
+    return pr, rep
+
+
+def print_prune(label, before: dict, after: dict, rep):
+    """One line of a prune's dims, time by phase, peak memory and K4
+    launches; one more of its layer-output errors, by consumer."""
+    print(f"  {label}: {before} -> {after} | "
+          f"{rep['wall_s']:.2f}s: " + " | ".join(
+              f"{k} {v:.3f}s" for k, v in rep["seconds"].items())
+          + f" | peak memory {rep['peak_mem_bytes'] / 2**30:.2f} GiB"
+          + (f" | K4 launches {rep['k4_launches']}, OBS-scored groups "
+             f"{rep['groups_with_obs']} of {rep['groups_total']}"
+             if "k4_launches" in rep else ""), flush=True)
+    if "layer_errors" in rep:
+        by_kind: dict[str, list] = {}
+        for name, e in rep["layer_errors"].items():
+            by_kind.setdefault(name.split("@")[0].split(".", 2)[2],
+                               []).append(e["ratio"])
+        print(f"  {label} layer output error ‖X(W-W')‖², OBSPA / plain "
+              f"slicing of the same columns: " + ", ".join(
+                  f"{k} {min(v):.4f}..{max(v):.4f} ({len(v)})"
+                  for k, v in sorted(by_kind.items()))
+              + f"; every consumer below slicing: "
+              f"{rep['all_below_slicing']}", flush=True)
+
+
+def phase_hybrid_path(rng, quick: bool) -> dict:
+    print("phase 12: the hybrid family — hymba-1.5b served, L1- and "
+          "OBSPA-pruned and served again (K1, K2, K3 and K4)", flush=True)
+    cfg = get_config("hymba-1.5b")
+    if quick:
+        cfg = cfg.replace(num_layers=4)
+    L = cfg.num_layers
+    model = build(cfg)
+    t0 = time.time()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    windows = [tf.layer_window(cfg, i) for i in range(L)]
+    print(f"  model: {cfg.name} L={L} d={cfg.d_model} H={cfg.n_heads} "
+          f"KH={cfg.n_kv_heads} hd={cfg.head_dim_} ff={cfg.d_ff} ssm heads "
+          f"{cfg.ssm_n_heads} x head_dim {cfg.ssm_head_dim}, state "
+          f"{cfg.ssm_state}, chunk {cfg.ssm_chunk}, V={cfg.vocab_size}, "
+          f"window {cfg.sliding_window} on {sum(map(bool, windows))} layers"
+          f" (global: {[i for i, w in enumerate(windows) if not w]}), "
+          f"{cfg.dtype}; {n_params(params)} parameters; init "
+          f"{time.time() - t0:.2f}s", flush=True)
+    scfg = ServeConfig(max_seqs=16, block_size=16, max_len=2048,
+                       chunk_size=128)
+    n_req, gen = (6, 8) if quick else (16, 32)
+    res = {"model": cfg.name, "layers": L, "params": n_params(params),
+           "serve_config": dataclasses.asdict(scfg)}
+    t_path = time.time()
+    reset_launches()                         # counts = this path's only
+    k2.reset_launches()
+    k3.reset_launches()
+    k4.reset_launches()
+    want = {"k1": 0, "k2": 0, "k3": 0, "k4": 0}
+    calib = batches(cfg, "datafree", 4, 4, 512, seed=5)
+    dense_model, dense_params = model, params
+    for label in ("dense", "l1", "obspa"):
+        if label == "l1":
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            pr = prune_model(dense_model, dense_params, 0.5, criterion="l1")
+            torch.cuda.synchronize()
+            rep = {"ratio": 0.5, "criterion": "l1",
+                   "wall_s": time.time() - t0,
+                   "seconds": pr.report["seconds"],
+                   "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        elif label == "obspa":
+            pr, rep = obspa_on_card(dense_model, dense_params, calib)
+            want["k4"] += obspa_blocks(cfg)
+        if label != "dense":
+            pc = pr.cfg
+            rep["pruned_cfg"] = dict(hybrid_dims(pc),
+                                     params=n_params(pr.params))
+            print_prune(f"{label} prune",
+                        dict(hybrid_dims(cfg), params=res["params"]),
+                        rep["pruned_cfg"], rep)
+            if hybrid_dims(pc) != HYMBA_PRUNED or pc.d_model != cfg.d_model:
+                raise AssertionError(f"unexpected pruned config {pc}")
+            res[f"{label}_prune"] = rep
+            model, params = build(pc), pr.params
+            del pr
+        reqs = hybrid_requests(rng, cfg.vocab_size, n_req, gen,
+                               n_long=2 if quick else 4)
+        res[label], n = check_hybrid(label, model, params, reqs, scfg,
+                                     visits=label == "dense")
+        for k in want:
+            want[k] += n.get(k, 0)
+    torch.cuda.synchronize()
+    k1_counts = launch_counts()
+    got = {"k1": k1_counts["total"], "k2": k2.launch_count(),
+           "k3": k3.launch_count(), "k4": k4.launch_count()}
+    res["wall_s"] = time.time() - t_path
+    res["launches"] = dict(got, k1_decode=k1_counts["decode"],
+                           k1_prefill=k1_counts["prefill"])
+    res["expected_launches"] = want
+    print(f"  hybrid path {res['wall_s']:.2f}s wall; launches {got} "
+          f"(K1 decode {k1_counts['decode']}, prefill "
+          f"{k1_counts['prefill']}); expected {want}", flush=True)
+    if got != want or min(got.values()) < 1 or not (
+            k1_counts["decode"] and k1_counts["prefill"]):
+        raise AssertionError(f"hybrid path launches {got} != {want}")
+    del model, params, dense_model, dense_params
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="cut phases 4, 7, 9 and 11 to 4 layers and a few "
-                         "requests or steps")
+                    help="cut phases 4, 7, 9, 11 and 12 to 4 layers and a "
+                         "few requests or steps")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode and one prefill step with "
                          "torch.profiler: device busy share, top kernels")
@@ -2804,6 +3318,14 @@ def main() -> int:
         "phase_7": prune_res["k2_launches"]}
     k2_entry["max_abs_err"] = max(k2_entry["max_abs_err"], k2_err)
     kernels.append(k2_entry)
+    hybrid_res = phase_hybrid_path(rng, args.quick)
+    hl = hybrid_res["launches"]
+    kernels[0]["launches_hybrid"] = hl["k1_decode"]
+    kernels[1]["launches_hybrid"] = hl["k1_prefill"]
+    k4_entry["launches_hybrid"] = hl["k4"]
+    k4_entry["launches_mamba2"] = mamba_res["k4_launches"]
+    k3_entry["launches_hybrid"] = hl["k3"]
+    k2_entry["launches_hybrid"] = hl["k2"]
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was never launched by its "
@@ -2818,6 +3340,7 @@ def main() -> int:
     print(json.dumps({"prune_path": prune_res, "k4_sweep": k4_sweep}))
     print(json.dumps({"mamba2_path": mamba_res}))
     print(json.dumps({"any_time_path": any_res}))
+    print(json.dumps({"hybrid_path": hybrid_res}))
     print(f"total {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,7 +13,11 @@ channels the group removes) get:
 
 Producer weights (whose *output* channels die) are simply sliced; a group
 with no product consumer falls back to magnitude scoring with no
-reconstruction, as in the reference.
+reconstruction, as in the reference.  The consumers are found on the ATen
+graph of every ported family: ``attn.wo`` and ``mlp.w_down`` (dense and
+hybrid) and the SSD block's ``ssm.w_out`` over its heads and head_dim (ssm
+and hybrid).  The SSM state group has none (``B`` meets ``C`` inside the
+scan, a product of two activations), so magnitude scores it.
 
 Everything runs on the device the parameters live on: activations are
 captured there, ``H`` accumulates there in f32 and is inverted there in
@@ -294,19 +298,21 @@ def reconstruct(ap, groups: list[Group], pruned: dict[str, list[int]],
 # Top level
 # ---------------------------------------------------------------------------
 
+OBSPA_FAMILIES = ("dense", "ssm", "hybrid")
+
+
 def require_obspa_family(cfg) -> None:
-    """OBSPA is ported for the dense family; its SSM consumers (the SSD
-    block's projections) wait for their ROADMAP.md item."""
-    if cfg.family != "dense":
+    """OBSPA is ported for the dense, ssm and hybrid families; the others
+    (and their conv / expert consumers) wait for their ROADMAP.md item."""
+    if cfg.family not in OBSPA_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: OBSPA for the {cfg.family!r} family is not ported "
-            f"yet — ROADMAP.md Queue 1 item 15 (OBSPA for SSM consumers); "
-            f"prune it by magnitude (prune_model)")
+            f"yet — ROADMAP.md Queue 1 item 14 (MoE, CNN, audio, VLM)")
 
 
 def obspa_prune(model, params, ratio: float, calib_batches: list,
                 calib_mode: str = "id") -> PruneResult:
-    """OBSPA pruning of a dense model on the device its parameters live on,
+    """OBSPA pruning of a model on the device its parameters live on,
     per group with the reference's defaults (damping ``DAMPING``, scores
     normalised by their mean, no unit alignment).  ``report["seconds"]``
     holds the time of each phase (trace, group, hessians, inverse, score,

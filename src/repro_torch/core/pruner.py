@@ -9,7 +9,7 @@ goes (layers stay uniform, which the stacked layer layout needs).  The
 reference's ``global`` mode serves the CNN family and waits for its slice.
 ``align_units`` keeps its reference meaning and default (1: no rounding).
 
-The dense and ssm families are ported; the CNN and MoE branches raise
+The dense, ssm and hybrid families are ported; the CNN and MoE branches raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from __future__ import annotations

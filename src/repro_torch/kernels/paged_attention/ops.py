@@ -2,12 +2,13 @@
 
 CUDA tensors with ``use_kernel`` go to the hand-written kernel, which
 launches or raises; it takes a *static* integer window.  CPU tensors go to
-the plain PyTorch version — only because they are on the CPU.  A
-per-sequence tensor window (hybrid layers, where the window is data) is
-served by the plain version on the CPU only: on CUDA tensors it raises
-``NotImplementedError`` until the hybrid families bring a kernel with
-per-sequence windows (ROADMAP.md, Queue 1 item 13).  ``use_kernel=False``
-is an explicit request for the plain version.
+the plain PyTorch version — only because they are on the CPU.  The hybrid
+family's layers each pass a static window (``models.transformer.
+layer_window``: the sliding window, or 0 on a global layer), so the kernel
+serves them as it is.  A per-sequence ``(B,)`` tensor window (the
+reference's form under ``lax.scan``) is served by the plain version on CPU
+tensors only, and raises ``NotImplementedError`` on CUDA tensors.
+``use_kernel=False`` is an explicit request for the plain version.
 
 ``return_visits`` exposes the kernel's per-(sequence, kv-head) block-visit
 counter; it is kernel-only — the plain version materializes every table
@@ -29,10 +30,10 @@ def _static_window(window) -> int:
     """The kernel's window argument: any integer type as a python int."""
     if isinstance(window, torch.Tensor):
         raise NotImplementedError(
-            "a per-sequence tensor window on CUDA tensors needs the kernel "
-            "with per-sequence windows that the SSM and hybrid families "
-            "bring (ROADMAP.md, Queue 1 item 13); the kernel of this "
-            "package takes a static integer window")
+            "a per-sequence tensor window is served by the plain version on "
+            "CPU tensors only; on CUDA tensors the kernel takes a static "
+            "integer window, one per layer "
+            "(models.transformer.layer_window)")
     if isinstance(window, numbers.Integral):
         return int(window)
     return window            # the kernel wrapper raises TypeError on it

@@ -6,8 +6,8 @@
       [--reduced] [--no-prefix-caching] [--temperature 0.8] \
       [--cache-dtype int8] [--prune-ratio 0.5 [--obspa]] [--device cpu]
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
-      --reduced --prune-ratio 0.5 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --reduced --prune-ratio 0.5 [--obspa] --device cpu
 
 Runs on the CUDA device; ``--device cpu`` asks for the CPU explicitly (the
 paged-attention kernel then gives way to its plain PyTorch version).  The
@@ -23,10 +23,10 @@ prompt prefix alias full KV blocks via refcounted prefix caching unless
 magnitude per group (``core.pruner.prune_model``), or with ``--obspa`` by
 OBSPA with data-free calibration (4 batches of 4 x ``--prompt-len`` uniform
 tokens, the reference CLI's calibration), whose sweeps run the K4 kernel on
-the card.  ``--arch mamba2-1.3b`` serves the ssm family (no prefix
-caching: its recurrent state is per slot) and prunes it by magnitude;
-``--obspa`` on it raises ``NotImplementedError`` (ROADMAP.md Queue 1 item
-15).
+the card.  ``--arch mamba2-1.3b`` serves the ssm family and ``--arch
+hymba-1.5b`` the hybrid one (no prefix caching for either: the recurrent
+state is per slot); both prune by magnitude or by OBSPA, and the pruned
+model's line prints its attention and SSM dims.
 
 ``generate`` (sequential, token-by-token over a contiguous cache) is kept as
 the correctness oracle the engine is tested against.
@@ -138,12 +138,14 @@ def main(argv: list[str] | None = None) -> None:
             pr = prune_model(model, params, args.prune_ratio)
         model, params = build(pr.cfg), pr.params
         pc = pr.cfg
-        dims = (f"ssm heads {pc.ssm_n_heads}, ssm head_dim "
-                f"{pc.ssm_head_dim}, state {pc.ssm_state}"
-                if pc.family == "ssm" else
-                f"heads {pc.n_heads}, kv heads {pc.n_kv_heads}, v_head_dim "
-                f"{pc.v_head_dim_}, d_ff {pc.d_ff}")
-        print(f"serving pruned model: {pc.name} ({dims})")
+        dims = []
+        if pc.family != "ssm":
+            dims.append(f"heads {pc.n_heads}, kv heads {pc.n_kv_heads}, "
+                        f"v_head_dim {pc.v_head_dim_}, d_ff {pc.d_ff}")
+        if pc.family == "ssm" or pc.hybrid:
+            dims.append(f"ssm heads {pc.ssm_n_heads}, ssm head_dim "
+                        f"{pc.ssm_head_dim}, state {pc.ssm_state}")
+        print(f"serving pruned model: {pc.name} ({'; '.join(dims)})")
 
     toks, lens = synthetic_prompts(cfg.vocab_size, args.requests,
                                    args.prompt_len, args.seed)

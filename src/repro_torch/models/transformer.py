@@ -1,11 +1,17 @@
 """Transformer backbone of the port: the dense family (GQA attention +
-SwiGLU) and the ssm family (Mamba-2: SSD blocks only, no attention and no
-separate FFN), as the reference's ``models/transformer.py`` runs them.
+SwiGLU), the ssm family (Mamba-2: SSD blocks only, no attention and no
+separate FFN) and the hybrid family (Hymba: attention and SSD heads in
+parallel on the same normed input, then SwiGLU), as the reference's
+``models/transformer.py`` runs them.
 
 Parameters are a nested dict of tensors with the reference's key paths;
 ``params["layers"]`` holds every per-layer leaf stacked on a leading
 ``(L, ...)`` axis, and a Python loop over that axis takes the place of
-``lax.scan``.  The other families (moe, vlm, hybrid, audio, cnn) raise
+``lax.scan``.  Because the loop is in Python, a hybrid layer's attention
+window is a static int (``layer_window``): ``cfg.sliding_window`` on the
+windowed layers, 0 (plain causal) on ``cfg.global_layers``.  The reference
+makes it data (``2**30`` on global layers) only because it scans its
+layers.  The other families (moe, vlm, audio, cnn) raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 
 In-place updates: the contiguous cache, the paged pools and the per-slot
@@ -33,16 +39,15 @@ _LATER = {
     "vlm": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
     "audio": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
     "cnn": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
-    "hybrid": "Queue 1 item 13 (SSM and hybrid families)",
 }
-PORTED = ("dense", "ssm")
+PORTED = ("dense", "ssm", "hybrid")
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Admit the ported families (dense, ssm); the others raise naming the
-    ROADMAP.md item that brings them."""
-    if cfg.family not in PORTED or cfg.hybrid or cfg.n_experts or \
-            cfg.is_encoder:
+    """Admit the ported families (dense, ssm, hybrid); the others raise
+    naming the ROADMAP.md item that brings them."""
+    if cfg.family not in PORTED or cfg.hybrid != (cfg.family == "hybrid") \
+            or cfg.n_experts or cfg.is_encoder:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet — "
             f"ROADMAP.md {_LATER.get(cfg.family, 'Queue 1')}")
@@ -59,6 +64,14 @@ def _layer(tree: dict, i: int) -> dict:
     return _tree_map(lambda a: a[i], tree)
 
 
+def layer_window(cfg: ArchConfig, i: int) -> int:
+    """Attention window of layer ``i``: ``cfg.sliding_window`` on a hybrid
+    layer outside ``cfg.global_layers``, else 0 (plain causal)."""
+    if cfg.hybrid and i not in cfg.global_layers:
+        return int(cfg.sliding_window)
+    return 0
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -71,6 +84,8 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
         p["ssm"] = ssm_mod.ssm_init(gen, cfg)
         return p
     p["attn"] = attn.attn_init(gen, cfg)
+    if cfg.hybrid:
+        p["ssm"] = ssm_mod.ssm_init(gen, cfg)
     if cfg.d_ff:
         p["ln2"] = ones()
         p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dt)
@@ -104,12 +119,18 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
 # ---------------------------------------------------------------------------
 
 def layer_forward(lp: dict, cfg: ArchConfig, x: torch.Tensor,
-                  positions: torch.Tensor) -> torch.Tensor:
+                  positions: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """One layer; ``window`` is ``layer_window(cfg, i)``."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         return x + ssm_mod.ssm_block(lp["ssm"], cfg, h)
-    x = x + attn.attention_block(lp["attn"], cfg, h, positions, "causal",
-                                 window=cfg.sliding_window)
+    a_out = attn.attention_block(lp["attn"], cfg, h, positions,
+                                 "sliding" if window else "causal",
+                                 window=window)
+    if cfg.hybrid:
+        x = x + a_out + ssm_mod.ssm_block(lp["ssm"], cfg, h)
+    else:
+        x = x + a_out
     if cfg.d_ff:
         h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
         x = x + swiglu(lp["mlp"], h2)
@@ -138,11 +159,13 @@ def forward(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.num_layers):
         lp = layers[i] if isinstance(layers, list) else _layer(layers, i)
+        win = layer_window(cfg, i)
         if remat:
             h = torch.utils.checkpoint.checkpoint(
-                layer_forward, lp, cfg, h, positions, use_reentrant=False)
+                layer_forward, lp, cfg, h, positions, win,
+                use_reentrant=False)
         else:
-            h = layer_forward(lp, cfg, h, positions)
+            h = layer_forward(lp, cfg, h, positions, win)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 
@@ -174,27 +197,37 @@ def _ssm_state(cfg: ArchConfig, L: int, rows: int, device) -> dict:
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
+    """Contiguous KV cache ``k``/``v`` (L, batch, max_len, KH, hd/vhd) and,
+    for the ssm and hybrid families, the per-row recurrent state."""
     require_ported(cfg)
     L = cfg.num_layers
-    if cfg.family == "ssm":
-        return _ssm_state(cfg, L, batch, device)
-    kv = attn.init_layer_cache(cfg, batch, max_len, dtype_of(cfg.dtype),
-                               device)
-    return {"k": kv.k[None].repeat(L, 1, 1, 1, 1),
-            "v": kv.v[None].repeat(L, 1, 1, 1, 1)}
+    cache: dict[str, Any] = {}
+    if cfg.family != "ssm":
+        kv = attn.init_layer_cache(cfg, batch, max_len, dtype_of(cfg.dtype),
+                                   device)
+        cache["k"] = kv.k[None].repeat(L, 1, 1, 1, 1)
+        cache["v"] = kv.v[None].repeat(L, 1, 1, 1, 1)
+    if cfg.family == "ssm" or cfg.hybrid:
+        cache.update(_ssm_state(cfg, L, batch, device))
+    return cache
 
 
 def _decode_layer(lp: dict, lc: dict, h: torch.Tensor, cfg: ArchConfig,
-                  attn_fn, ssm_fn) -> torch.Tensor:
+                  attn_fn, ssm_fn, window: int) -> torch.Tensor:
     """One incremental layer, shared by the contiguous decode, paged decode
-    and chunked paged-prefill paths.  ``attn_fn(attn_params, hn, lc) ->
-    a_out`` and ``ssm_fn(ssm_params, hn, lc) -> delta`` encapsulate
-    everything the cache layouts / step widths disagree on (and write
-    ``lc`` in place); the residual/FFN scaffolding stays single-source."""
+    and chunked paged-prefill paths.  ``attn_fn(attn_params, hn, lc,
+    window) -> a_out`` and ``ssm_fn(ssm_params, hn, lc) -> delta``
+    encapsulate everything the cache layouts / step widths disagree on (and
+    write ``lc`` in place); the residual/FFN scaffolding stays
+    single-source."""
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         return h + ssm_fn(lp["ssm"], hn, lc)
-    h = h + attn_fn(lp["attn"], hn, lc)
+    a_out = attn_fn(lp["attn"], hn, lc, window)
+    if cfg.hybrid:
+        h = h + a_out + ssm_fn(lp["ssm"], hn, lc)
+    else:
+        h = h + a_out
     if cfg.d_ff:
         h2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
         h = h + swiglu(lp["mlp"], h2)
@@ -209,7 +242,7 @@ def _run_decode_layers(params: dict, cfg: ArchConfig, cache: dict,
     h = x
     for i in range(cfg.num_layers):
         h = _decode_layer(_layer(params["layers"], i), _layer(cache, i), h,
-                          cfg, attn_fn, ssm_fn)
+                          cfg, attn_fn, ssm_fn, layer_window(cfg, i))
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 
@@ -232,9 +265,10 @@ def decode_step(params: dict, cfg: ArchConfig, cache: dict,
     x = params["tok_embed"][tokens.long()[:, None]]             # (B,1,d)
     pos = int(pos)
 
-    def attn_fn(ap, hn, lc):
+    def attn_fn(ap, hn, lc, window):
         a_out, _ = attn.attention_decode(
-            ap, cfg, hn, pos, attn.KVCache(lc["k"], lc["v"]), "causal")
+            ap, cfg, hn, pos, attn.KVCache(lc["k"], lc["v"]),
+            "sliding" if window else "causal", window=window)
         return a_out
 
     def ssm_fn(sp, hn, lc):
@@ -271,14 +305,16 @@ def init_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
     consumed by the kernel's fused dequant.  Pools start as zeros (never
     uninitialised memory): masked keys multiply ``p = 0`` by whatever a
     block holds, so every cell must be finite from the start.
-    The ssm family holds no KV pools: its SSM/conv state is O(1) per
-    sequence, a plain per-slot tensor ``conv (L, max_seqs, K-1, ch)`` in
-    the model dtype and ``state (L, max_seqs, h, p, n)`` f32 (carried, not
-    re-derived, so ``dtype`` does not narrow it).
+    The ssm family holds no KV pools, the hybrid family both: SSM/conv
+    state is O(1) per sequence, a plain per-slot tensor ``conv (L,
+    max_seqs, K-1, ch)`` in the model dtype and ``state (L, max_seqs, h, p,
+    n)`` f32 (carried, not re-derived, so ``dtype`` does not narrow it).
     """
     require_ported(cfg)
+    ssm_state = (_ssm_state(cfg, cfg.num_layers, max_seqs, device)
+                 if cfg.family == "ssm" or cfg.hybrid else {})
     if cfg.family == "ssm":
-        return _ssm_state(cfg, cfg.num_layers, max_seqs, device)
+        return ssm_state
     quant = is_quantized(dtype)
     dt = pool_dtype(dtype) if quant else dtype_of(dtype or cfg.dtype)
     L, KH = cfg.num_layers, cfg.n_kv_heads
@@ -292,6 +328,7 @@ def init_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
         for name in ("k_scale", "v_scale"):
             cache[name] = torch.zeros((L, num_blocks, block_size, KH),
                                       dtype=torch.float32, device=device)
+    cache.update(ssm_state)
     return cache
 
 
@@ -318,9 +355,9 @@ def paged_decode_step(params: dict, cfg: ArchConfig, cache: dict,
     # use — KV needs no such reset, reads are length-masked
     fresh = positions == 0
 
-    def attn_fn(ap, hn, lc):
+    def attn_fn(ap, hn, lc, window):
         a_out, _ = attn.attention_paged_decode(
-            ap, cfg, hn, positions, lc, block_tables, window=0)
+            ap, cfg, hn, positions, lc, block_tables, window=window)
         return a_out
 
     def ssm_fn(sp, hn, lc):
@@ -351,9 +388,9 @@ def _paged_chunk_forward(params: dict, cfg: ArchConfig, cache: dict,
     # (valid == 0: idle or decode-phase slots) keep their recurrent state
     fed = valid > 0
 
-    def attn_fn(ap, hn, lc):
+    def attn_fn(ap, hn, lc, window):
         a_out, _ = attn.attention_paged_prefill(
-            ap, cfg, hn, positions, lc, block_tables, valid, window=0)
+            ap, cfg, hn, positions, lc, block_tables, valid, window=window)
         return a_out
 
     rows = slots.long()

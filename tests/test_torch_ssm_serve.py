@@ -275,9 +275,14 @@ def test_cli_serves_mamba2_on_the_cpu(prune, capsys):
         assert "ssm heads 4, ssm head_dim 8, state 8" in out
 
 
-def test_cli_obspa_on_mamba2_names_its_roadmap_item():
+def test_cli_obspa_on_mamba2_names_its_roadmap_item(capsys):
+    """OBSPA for SSM consumers is ported (it once raised naming its ROADMAP
+    item): the CLI OBSPA-prunes reduced Mamba-2 on the CPU and serves it."""
     from repro_torch.launch import serve as cli
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item "
-                                                  "15"):
-        cli.main(["--arch", "mamba2-1.3b", "--reduced", "--prune-ratio",
-                  "0.5", "--obspa", "--prompt-len", "16", "--device", "cpu"])
+    cli.main(["--arch", "mamba2-1.3b", "--reduced", "--prune-ratio", "0.5",
+              "--obspa", "--requests", "3", "--prompt-len", "16", "--gen",
+              "4", "--max-seqs", "2", "--block-size", "4", "--chunk-size",
+              "16", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "ssm heads 4, ssm head_dim 8, state 8" in out
+    assert "served 3 requests / 12 new tokens" in out
