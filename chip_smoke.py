@@ -35,7 +35,8 @@ nothing of JAX or of the JAX package.  Phases:
  6. the OBSPA sweep kernel K4 against its plain PyTorch version and the
     float64 oracle (the reference's test shapes, identity Hessian, a batched
     case, the main path's R=2048 x K=2048 / 5632 at half the columns
-    pruned), then K4 alone on one column block at the design's edge cases
+    pruned, phase 13's 60 experts in one launch at K 1408 and its shared
+    expert at K 22528), then K4 alone on one column block at the design's edge cases
     (no, one, 64 contiguous, all 128, the first or the last column pruned;
     R 1, 17, 2051; nb 4 with one shared Hinv), each call repeated bitwise,
     in place and counted; then (6b) its profiler device time at three
@@ -101,11 +102,33 @@ nothing of JAX or of the JAX package.  Phases:
     L1-pruned and OBSPA-pruned (K4) at ratio 0.5 on the card, each checked
     the same way, with every reconstructed consumer's layer-output error
     against plain slicing recorded, and the four kernels' launches held to
-    their formulas.
+    their formulas; its prompts come from a generator of its own;
+13. the moe family at full width: ``qwen2-moe-a2.7b`` (24 layers, d 2048,
+    16 heads of 128 over 16 KV heads, 60 routed experts top-4 of width
+    1408 and 4 shared experts of 5632, bf16, random weights from a seed) —
+    each layer's attention on K2 against its plain version and its MoE
+    block against the block's float32 twin (2 x 1600 tokens); 16 requests
+    served at the published capacity factor (1.25), with the real tokens'
+    (token, expert) assignments that the capacity dropped counted; the
+    no-drop twin (capacity factor 15, float32, first 2 layers) served and
+    held to the sequential oracle token for token; in bf16 through the
+    engine, teacher-forced against ``Model.forward`` on K2: the published
+    routing at 2 layers read only (a router near-tie flips an expert
+    between the two roundings), the all-experts twin (top-60, capacity
+    factor 1: no choice, no drop) held at 2 layers and at 24; the drop
+    counter's time in a decode step; then L1-pruned at ratio
+    0.5 at all 24 layers and OBSPA-pruned at ratio 0.5 at its first 8
+    (every consumer's Hessian is held at once: ~60 GB at 24 layers), the
+    experts' ``w_down`` swept by K4 all 60 at once, every reconstructed
+    consumer's layer-output error held below plain slicing; each pruned
+    model checked layer by layer and served again, and the launches of K1,
+    K2 and K4 held to their formulas.
 
 Phases 3, 8 and 10 also hold K1, K3 and K2 at Hymba's shapes (G = 5, the
-window of 1024 over 2048 tokens, 50 SSM heads x 64 x state 16) and at the
-widths pruning leaves.
+window of 1024 over 2048 tokens, 50 SSM heads x 64 x state 16), K1 and K2
+at qwen2-moe's (16 heads of 128, G = 1; phase 2 prints the registers and
+spills of the instances this picks, and raises if one spills; phases 3b
+and 10b time them) and at the widths pruning leaves.
 
 Every full-sequence ``Model.forward`` / ``Model.loss`` of an attention model
 on the card runs K2 (teacher forcing in phases 4 and 7, every evaluation in
@@ -116,7 +139,7 @@ The kernels are built in parallel (one ``nvcc`` per source).  Any failing
 phase raises, so the exit code is non-zero and no ``"ok"`` line
 is printed.  TF32 is off for matmuls and cuDNN throughout.
 
-``--quick`` cuts phases 4, 7, 9, 11 and 12 to 4 layers and a few requests
+``--quick`` cuts phases 4, 7, 9, 11, 12 and 13 to 4 layers and a few requests
 or steps (for a first look at a new kernel); ``--profile`` adds a
 ``torch.profiler`` trace of one decode and one prefill step (device busy
 share, K1's time per step, top kernels).  The default is the full run without the trace.
@@ -135,6 +158,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -162,7 +186,9 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention import plan as k1_plan  # noqa: E402
 from repro_torch.kernels.paged_attention.paged_attention import (  # noqa: E402
     sm_count as k1_sm_count)
+from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import build  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.attention import _scatter_kv  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     attention_block as attn_block)
@@ -546,6 +572,32 @@ def phase_kernel_checks(rng, seed: int) -> float:
                 f"{tag} {'prefill C=128' if pre else 'decode'} "
                 f"{str(dt)[6:]} window {win}", c, window=win, prefill=pre,
                 valid=hva if pre else None))
+
+    # qwen2-moe-a2.7b's shapes (phase 13): 16 heads over 16 KV heads of
+    # 128 (G = 1, so every decode row is one row of the split-KV instance
+    # and a prefill chunk of 128 fills two warpgroups), histories up to 512
+    # in 32 blocks of 16, the float32 twin (CUDA cores), and the heads that
+    # pruning at 0.5 leaves (8 over 8, DV 64).  Own generator, as above.
+    rng = np.random.default_rng([seed, 13])
+    for tag, mo in (("qwen2-moe", dict(B=16, H=16, KH=16, D=128, DV=128,
+                                       bs=16, NB=32)),
+                    ("qwen2-moe pruned", dict(B=16, H=8, KH=8, D=128, DV=64,
+                                              bs=16, NB=32))):
+        ml = ragged(rng, 16, 1, 512)
+        ml[:3] = (512, 1, 129)
+        mst = (ragged(rng, 16, 0, 3) * 128).astype(np.int32)
+        mva = ragged(rng, 16, 1, 128)
+        mva[0], mva[5], mst[5] = 128, 0, 0        # a full chunk, an idle row
+        dts = (bf16, f32) if tag == "qwen2-moe" else (bf16,)
+        for dt in dts:
+            for pre in (False, True):
+                c = make_case(rng, C=128 if pre else 1, q_dtype=dt, pool=dt,
+                              kv_lens=mst + mva if pre else ml,
+                              q_starts=mst if pre else None, **mo)
+                worst = max(worst, check_case(
+                    f"{tag} {'prefill C=128' if pre else 'decode'} "
+                    f"{str(dt)[6:]}", c, prefill=pre,
+                    valid=mva if pre else None))
     return worst
 
 
@@ -588,25 +640,34 @@ def attention_work(case, *, prefill: bool):
     return kv_bytes + tbl_bytes + io_bytes, flops
 
 
-def time_kernel(name, rng, *, C, NB, prefill, iters, rounds=6):
+# K1's timed shapes: TinyLlama's (phase 4) and qwen2-moe-a2.7b's (phase 13:
+# 16 heads of 128, G = 1, 16 slots of histories up to 512)
+K1_TIMED = dict(B=32, H=32, KH=4, D=64, bs=16, decode_lens=(256, 1088),
+                chunks=(2, 7))
+K1_TIMED_MOE = dict(B=16, H=16, KH=16, D=128, bs=16, decode_lens=(64, 512),
+                    chunks=(0, 3))
+
+
+def time_kernel(name, rng, *, C, NB, prefill, iters, rounds=6,
+                shape=K1_TIMED):
     """K1, its plain version and one ``scaled_dot_product_attention`` call on
     the gathered history (gathered outside the timed region: a yardstick
-    only) at a main-path shape, rotating over distinct pools so that each
+    only) at a path's ``shape``, rotating over distinct pools so that each
     call finds the L2 cold, as a layer of the model does.  K1 and SDPA take
     turns over ``rounds`` rounds, each timed by the profiler's device time
     per call (K1: its kernels added up, the decode instance's splits and
     combine alike; SDPA: every kernel of the call) and by CUDA events, the
     SM clock, power and temperature read around each round; plain, then
     the rounds, then plain."""
-    B, H, KH, D, bs = 32, 32, 4, 64, 16
+    B, H, KH, D, bs = (shape[k] for k in ("B", "H", "KH", "D", "bs"))
     dt = torch.bfloat16
     if prefill:
-        starts = (ragged(rng, B, 2, 7) * 128).astype(np.int32)
+        starts = (ragged(rng, B, *shape["chunks"]) * 128).astype(np.int32)
         valid = np.full(B, C, np.int32)
         lens = starts + valid
     else:
         starts = None
-        lens = ragged(rng, B, 256, 1088)
+        lens = ragged(rng, B, *shape["decode_lens"])
     n_rot = 4
     cases = [make_case(rng, B=B, C=C, H=H, KH=KH, D=D, DV=D, bs=bs, NB=NB,
                        q_dtype=dt, pool=dt, kv_lens=lens, q_starts=starts)
@@ -804,6 +865,11 @@ def teacher_forced_gap(model, params, rec) -> tuple[float, float]:
     toks = torch.tensor([seq], dtype=torch.int32, device=DEV)
     with torch.no_grad():
         logits = model.forward(params, {"tokens": toks})[0].float()
+    return forced_gap(logits, rec)
+
+
+def forced_gap(logits, rec) -> tuple[float, float]:
+    """``teacher_forced_gap`` on the logits (S, V) of prompt + output."""
     P = len(rec.prompt)
     at = logits[P - 1:P - 1 + len(rec.tokens)]
     emitted = torch.tensor(rec.tokens, device=DEV)
@@ -1136,18 +1202,20 @@ def phase_device_code(rng) -> dict:
 # Phase 6: the OBSPA sweep kernel (K4) vs its plain version
 # ---------------------------------------------------------------------------
 
-def sweep_case(seed, R, K, frac, nb=None):
-    """W, Hinv (inverse of a damped sample covariance, float64 inverse) and
-    a prune mask, made on the card from a seeded generator.  Returns CUDA
-    tensors (f32, f32, bool)."""
+def sweep_case(seed, R, K, frac, nb=None, samples=None):
+    """W, Hinv (inverse of a damped sample covariance of ``samples`` rows,
+    4K by default; float64 inverse) and a prune mask, made on the card from
+    a seeded generator.  Returns CUDA tensors (f32, f32, bool)."""
     gen = torch.Generator(device=DEV)
     gen.manual_seed(seed)
     lead = () if nb is None else (nb,)
+    n = samples or 4 * K
     W = torch.randn(lead + (R, K), generator=gen, device=DEV)
-    X = torch.randn(lead + (K, 4 * K), generator=gen, device=DEV,
+    X = torch.randn(lead + (K, n), generator=gen, device=DEV,
                     dtype=torch.float64)
-    H = X @ X.transpose(-1, -2) / (4 * K) + 0.01 * torch.eye(
+    H = X @ X.transpose(-1, -2) / n + 0.01 * torch.eye(
         K, device=DEV, dtype=torch.float64)
+    del X
     Hinv = torch.linalg.inv(H).float()
     mask = torch.rand(K, generator=gen, device=DEV) < frac
     return W, Hinv, mask
@@ -1208,6 +1276,22 @@ def phase_k4_checks() -> float:
         _, e = check_sweep(f"main path R=2048 K={K} half pruned",
                            *sweep_case(120 + K, 2048, K, 0.5))
         worst = max(worst, e)
+    # phase 13's OBSPA shapes: the 60 experts' w_down in one launch a
+    # column block (grid y 60, each expert its own W and Hinv), and the
+    # shared w_down at K 22528; Hessians of the calibration's 8192 rows
+    # (4 x 4 x 512), of which each expert sees 8192 x 4 / 60 on average
+    n_cal = 4 * 4 * 512
+    moe = get_config("qwen2-moe-a2.7b")
+    cases = (("moe experts nb=60", moe.n_experts, moe.moe_d_ff,
+              n_cal * moe.top_k // moe.n_experts),
+             ("moe shared", None, moe.n_shared_experts * moe.shared_d_ff,
+              n_cal))
+    for i, (name, nb, K, n) in enumerate(cases):
+        _, e = check_sweep(f"{name} R={moe.d_model} K={K} half pruned",
+                           *sweep_case(150 + i, moe.d_model, K, 0.5, nb=nb,
+                                       samples=n))
+        worst = max(worst, e)
+        torch.cuda.empty_cache()
     print("  one column block (the kernel alone; W and E vs float64 and "
           "plain, two calls and the sweep in place bitwise equal):",
           flush=True)
@@ -2214,6 +2298,17 @@ K2_HYMBA_SHAPES = [
 ]
 
 
+# qwen2-moe-a2.7b's attention (phase 13): 16 heads of 128 over 16 KV heads
+# (G = 1: one head a block), at phase 13's 2 x 1600 tokens; the float32
+# twin; the heads pruning at 0.5 leaves (8 over 8, DV 64)
+K2_MOE = (2, 1600, 16, 16, 128, 128, True, 0, torch.bfloat16)
+K2_MOE_SHAPES = [
+    K2_MOE,
+    (2, 1600, 16, 16, 128, 128, True, 0, torch.float32),
+    (2, 1600, 8, 8, 128, 64, True, 0, torch.bfloat16),
+]
+
+
 def k2_case(seed, B, S, H, KH, D, DV, dtype, offset: int = 0):
     """q, k, v in model layout (B, S, heads, dim) on the card, standard
     normal from a seeded generator, rounded to ``dtype``; with ``offset``
@@ -2255,7 +2350,7 @@ def phase_k2_checks() -> float:
           flush=True)
     main_err = 0.0
     cases = [(s, 0) for s in K2_SHAPES] + [(s, 1) for s in K2_OFFSET_SHAPES] \
-        + [(s, 0) for s in K2_HYMBA_SHAPES]
+        + [(s, 0) for s in K2_HYMBA_SHAPES] + [(s, 0) for s in K2_MOE_SHAPES]
     for i, (shape, offset) in enumerate(cases):
         B, S, H, KH, D, DV, causal, window, dt = shape
         q, k, v = k2_case(300 + i, B, S, H, KH, D, DV, dt, offset)
@@ -2355,6 +2450,42 @@ def build_report(name: str, label: str) -> dict:
     return {"kernels": kernels, "sass": sass}
 
 
+# the K1 / K2 instances phase 13's qwen2-moe path picks: bf16 split-KV
+# decode and wgmma prefill at DV 128 (dense) and 64 (pruned), K2's wgmma
+# instance at the same DV tiles with 16-byte copies
+MOE_INSTANCES = {
+    "K1": (r"paged_attention_decode_mma_kernel<__nv_bfloat16, (128|64)>",
+           r"paged_attention_kernel_wgmma<__nv_bfloat16, (128|64)>"),
+    "K2": (r"flash_attention_kernel_wgmma<(128|64), true>",),
+}
+
+
+def path_instances(report: dict, label: str) -> list[dict]:
+    """The instances of ``MOE_INSTANCES[label]`` in a library's build
+    report, printed with their registers, spills and stack; raises when one
+    spills or a pattern matches no instance."""
+    ks = report["kernels"]
+    if not ks:
+        return []
+    out = []
+    for pat in MOE_INSTANCES[label]:
+        found = [k for k in ks if re.search(pat, k["name"])]
+        if not found:
+            raise AssertionError(f"{label}: no instance matches {pat}")
+        out += found
+    for k in out:
+        print(f"  qwen2-moe path {label} {k['name'].split('(')[0]}: "
+              f"{k['registers']} registers, {k['spill_bytes']} bytes "
+              f"spilled, {k['stack_bytes']} bytes of stack", flush=True)
+    spilled = [k["name"] for k in out if k["spill_bytes"]]
+    if spilled:
+        raise AssertionError(f"{label} instances of the qwen2-moe path "
+                             f"spill registers: {spilled}")
+    return [{"name": k["name"].split("(")[0], "registers": k["registers"],
+             "spill_bytes": k["spill_bytes"],
+             "stack_bytes": k["stack_bytes"]} for k in out]
+
+
 def build_summary(report: dict) -> dict:
     """A library's build in a few numbers, for the kernels line (the
     instance by instance report goes on a line of its own)."""
@@ -2398,16 +2529,18 @@ def spread(xs) -> str:
     return f"median {np.median(xs):.4f} ms (range {min(xs):.4f}-{max(xs):.4f})"
 
 
-def time_k2(iters: int = 20, rounds: int = 6) -> dict:
+def time_k2(iters: int = 20, rounds: int = 6, shape=None) -> dict:
     """K2, its plain version and one ``scaled_dot_product_attention`` call
     (K/V expanded to every query head outside the timed region: a yardstick
-    only) at the main path's shape, rotating over four inputs so that each
+    only; at G = 1 it is the ``enable_gqa`` call) at a path's ``shape``
+    (the main path's by default), rotating over four inputs so that each
     call finds the L2 cold, as a layer of the model does.  K2 and SDPA take
     turns over ``rounds`` rounds, the SM clock, power and temperature read
     before and after each; K2's profiler device time beside its event
     time; plain, kernel, kernel, plain; and the f32 (CUDA-core) instance at
     the same shape in f32."""
-    B, S, H, KH, D, DV, causal, window, dt = K2_MAIN
+    shape = shape or K2_MAIN
+    B, S, H, KH, D, DV, causal, window, dt = shape
     n_rot = 4
     cases = [k2_case(400 + i, B, S, H, KH, D, DV, dt) for i in range(n_rot)]
     lib = [(q.transpose(1, 2).contiguous(),
@@ -2438,7 +2571,7 @@ def time_k2(iters: int = 20, rounds: int = 6) -> dict:
     k_ms = [x["k2_ms"] for x in rounds_]
     l_ms = [x["library_ms"] for x in rounds_]
     kern_ms = float(np.median(k_ms))
-    nbytes, flops = k2_work(*K2_MAIN)
+    nbytes, flops = k2_work(*shape)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_flops = flops / PEAK_FLOPS[dt] * 1e3
     bound = max(t_bytes, t_flops)
@@ -3205,11 +3338,445 @@ def phase_hybrid_path(rng, quick: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the moe family (qwen2-moe-a2.7b) — K1 and K2 at head_dim 128 and
+# G = 1, then L1 and OBSPA pruning (K4 over the 60 experts at once), each
+# model served again
+# ---------------------------------------------------------------------------
+
+# SPA at ratio 0.5 on qwen2-moe-a2.7b's structure: heads 16 -> 8 (G = 1:
+# each KV head with its one query head), v_head_dim 128 -> 64, experts 60
+# -> 30 (router column and expert weights merged by MOE_HINTS), expert width
+# 1408 -> 704, shared width 22528 -> 11264 (the same widths for L1 and
+# OBSPA; phases 3 and 10 check K1 and K2 at them)
+QWEN2_MOE_PRUNED = dict(n_heads=8, n_kv_heads=8, head_dim=128,
+                        v_head_dim=64, n_experts=30, top_k=4, moe_d_ff=704,
+                        shared_width=11264)
+MOE_SEQ = 1600              # the layer checks' 2 x 1600 tokens
+# OBSPA's depth: the prune holds every consumer's Hessian at once, 2.03 GB
+# a layer for the shared w_down (K 22528) and 0.48 GB for the 60 experts'
+# (K 1408): ~60 GB at 24 layers beside 33.6 GB of weights, ~20 GB at 8
+MOE_OBSPA_LAYERS = 8
+# the no-drop twin held to the oracle token for token: float32 (in bf16 the
+# engine's batched steps and the oracle's one-row steps round apart, which
+# flips near-tied argmaxes of random weights), cut to its first 2 layers
+MOE_TWIN_LAYERS = 2
+# a MoE block in bf16 against its float32 twin: the expert and shared paths
+# round to bf16 at four places (gate, up, their product, the down
+# projection) but each output is one rounding of an f32 sum of them: two
+# bf16 steps of the largest output
+MOE_BLOCK_TOL = 2.0 ** -6
+
+
+def moe_dims(c) -> dict:
+    return {"n_heads": c.n_heads, "n_kv_heads": c.n_kv_heads,
+            "head_dim": c.head_dim_, "v_head_dim": c.v_head_dim_,
+            "n_experts": c.n_experts, "top_k": c.top_k,
+            "moe_d_ff": c.moe_d_ff,
+            "shared_width": c.n_shared_experts * c.shared_d_ff}
+
+
+def moe_blocks_vs_plain(model, params, seq: int = MOE_SEQ) -> dict:
+    """Every layer's attention on K2 against its plain version, and its MoE
+    block in bf16 against the same block in float32 (weights and input cast
+    up: the router sees the same f32 input, so both route and drop alike),
+    on the input the plain forward gives that layer (2 x ``seq`` tokens):
+    max|Δ| / max|reference| per layer, and the real tokens' dropped
+    assignments of the two, which must be equal.  Launches K2 once per
+    layer."""
+    cfg = model.cfg
+    plain = cfg.replace(use_kernels=False)
+    f32 = cfg.replace(dtype="float32")
+    toks = model.dummy_batch(2, seq, seed=12)["tokens"]
+    pos = torch.arange(seq, dtype=torch.int32, device=DEV)[None].expand(
+        2, seq)
+    real = torch.ones((2, seq), dtype=torch.bool, device=DEV)
+    errs = {"attention": [], "moe": []}
+    drops = []
+    with torch.no_grad():
+        h = params["tok_embed"][toks.long()]
+        for i, lp in enumerate(tf.unstack_layers(params,
+                                                 cfg.num_layers)["layers"]):
+            hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+            a = attn_block(lp["attn"], cfg, hn, pos, "causal")
+            a_p = attn_block(lp["attn"], plain, hn, pos, "causal")
+            h = h + a_p
+            h2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
+            moe_mod.reset_dropped()
+            m, _ = moe_mod.moe_block(lp["moe"], cfg, h2, real)
+            d_bf = moe_mod.dropped_assignments()
+            moe_mod.reset_dropped()
+            m32, _ = moe_mod.moe_block(f32_tree(lp["moe"]), f32, h2.float(),
+                                       real)
+            d_32 = moe_mod.dropped_assignments()
+            if not (torch.isfinite(a).all() and torch.isfinite(m).all()):
+                raise AssertionError(f"layer {i}: non-finite K2 / MoE output")
+            if d_bf != d_32:
+                raise AssertionError(f"layer {i}: bf16 and float32 MoE blocks "
+                                     f"dropped {d_bf} and {d_32} assignments")
+            errs["attention"].append(ssd_rel(a, a_p))
+            errs["moe"].append(ssd_rel(m, m32))
+            drops.append(d_bf)
+            h = h + m
+    moe_mod.reset_dropped()
+    return dict({k: {"max_rel": max(v), "worst_layer": int(np.argmax(v)),
+                     "per_layer": v} for k, v in errs.items()},
+                dropped_per_layer=drops, dtype=cfg.dtype, seq=seq,
+                assignments_per_layer=2 * seq * cfg.top_k)
+
+
+def serve_moe(model, params, reqs, scfg) -> dict:
+    """Serve ``reqs`` through the engine; every request must finish with its
+    tokens, finite.  Counts the real tokens' (token, expert) assignments
+    that the capacity dropped, over every layer and step of the serve."""
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(model, params, scfg)
+    moe_mod.reset_dropped()
+    out, stats = eng.run(reqs)
+    torch.cuda.synchronize()
+    drops = moe_mod.dropped_assignments()
+    moe_mod.reset_dropped()
+    peak = torch.cuda.max_memory_allocated()
+    gen = reqs[0]["max_new_tokens"]
+    if len(out) != len(reqs) or any(len(r.tokens) != gen
+                                    for r in out.values()):
+        raise AssertionError("not every request finished with its tokens")
+    V = model.cfg.vocab_size
+    if any(not 0 <= t < V for r in out.values() for t in r.tokens):
+        raise AssertionError("a served token lies outside the vocabulary")
+    tokens = stats["prefill_tokens"] + stats["decode_tokens"]
+    return {"requests": len(out), "gen": gen, "wall_s": stats["wall_s"],
+            "steps": stats["steps"], "decode_calls": stats["decode_calls"],
+            "prefill_calls": stats["prefill_calls"],
+            "decode_tok_per_s": stats["decode_tok_per_s"],
+            "total_tok_per_s": stats["total_tok_per_s"],
+            "mean_ttft_s": stats["mean_ttft_s"],
+            "prefix_hits": eng.cache_host.prefix_hits,
+            "peak_mem_bytes": peak, "layers": model.cfg.num_layers,
+            "dropped_assignments": drops,
+            "real_assignments": int(tokens * model.cfg.top_k
+                                    * model.cfg.num_layers),
+            "outputs": {rid: out[rid].tokens for rid in sorted(out)}}
+
+
+def print_moe_serve(label, r):
+    print(f"  {label}: served {r['requests']} x {r['gen']} tokens in "
+          f"{r['wall_s']:.2f}s, decode {r['decode_tok_per_s']:.1f} tok/s, "
+          f"prefill+decode {r['total_tok_per_s']:.1f} tok/s, mean TTFT "
+          f"{r['mean_ttft_s'] * 1e3:.1f} ms, {r['steps']:.0f} steps "
+          f"({r['decode_calls']:.0f} decode, {r['prefill_calls']:.0f} "
+          f"prefill calls), prefix hits {r['prefix_hits']}, peak "
+          f"{r['peak_mem_bytes'] / 2**30:.2f} GiB | dropped assignments "
+          f"{r['dropped_assignments']} of {r['real_assignments']} "
+          f"({100 * r['dropped_assignments'] / r['real_assignments']:.3f} %)",
+          flush=True)
+
+
+def print_moe_blocks(label, blocks):
+    print(f"  {label} {blocks['dtype']} layer by layer, 2 x {blocks['seq']} "
+          f"tokens: attention "
+          f"on K2 vs plain max|Δ|/max|plain| "
+          f"{blocks['attention']['max_rel']:.2e} (layer "
+          f"{blocks['attention']['worst_layer']}; tol {BF16_BLOCK_TOL:.2e}, "
+          f"one bf16 step) | MoE block vs its float32 twin "
+          f"{blocks['moe']['max_rel']:.2e} (layer "
+          f"{blocks['moe']['worst_layer']}; tol {MOE_BLOCK_TOL:.2e}) | "
+          f"dropped assignments per layer "
+          f"{min(blocks['dropped_per_layer'])}.."
+          f"{max(blocks['dropped_per_layer'])} of "
+          f"{blocks['assignments_per_layer']}", flush=True)
+    if blocks["attention"]["max_rel"] > BF16_BLOCK_TOL:
+        raise AssertionError(f"{label}: attention on K2 vs plain "
+                             f"{blocks['attention']['max_rel']}")
+    if blocks["moe"]["max_rel"] > MOE_BLOCK_TOL:
+        raise AssertionError(f"{label}: MoE block bf16 vs float32 "
+                             f"{blocks['moe']['max_rel']}")
+
+
+def moe_twin_vs_oracle(model, params, reqs, scfg) -> dict:
+    """The no-drop twin (capacity factor n_experts / top_k: every expert
+    has a slot for every token) served and each request's tokens held to
+    the sequential oracle ``generate`` token for token; no assignment may
+    be dropped."""
+    r = serve_moe(model, params, reqs, scfg)
+    if r["dropped_assignments"]:
+        raise AssertionError(f"the no-drop twin dropped "
+                             f"{r['dropped_assignments']} assignments")
+    t0 = time.time()
+    mismatched = []
+    for rid, req in enumerate(reqs):
+        prompt = torch.tensor([req["prompt"]], dtype=torch.int64, device=DEV)
+        want = generate(model, params, prompt, req["max_new_tokens"])
+        want = want[0, len(req["prompt"]):].tolist()
+        if r["outputs"][rid] != want:
+            mismatched.append(rid)
+    r["oracle_s"] = time.time() - t0
+    r["equal_to_oracle"] = not mismatched
+    if mismatched:
+        raise AssertionError(f"the no-drop twin's engine differs from the "
+                             f"oracle on requests {mismatched}")
+    return r
+
+
+def moe_forced(model, params, reqs, scfg) -> dict:
+    """Serve ``reqs`` in a configuration where no assignment can drop (none
+    may), and feed every served sequence through ``Model.forward`` on K2
+    and on the plain attention: the engine's tokens' teacher-forced
+    shortfall against the forward on K2, and the largest logit difference
+    between the two forwards — how far these logits move under a change of
+    attention rounding alone (the plain version rounds P to bf16), router
+    near-ties that flip an expert included."""
+    r = serve_moe(model, params, reqs, scfg)
+    if r["dropped_assignments"]:
+        raise AssertionError(f"a no-drop serve dropped "
+                             f"{r['dropped_assignments']} assignments")
+    plain = build(model.cfg.replace(use_kernels=False))
+    gaps, spread, top = [], 0.0, 0.0
+    for rid, req in enumerate(reqs):
+        rec = types.SimpleNamespace(prompt=req["prompt"],
+                                    tokens=r["outputs"][rid])
+        seq = torch.tensor([list(rec.prompt) + list(rec.tokens)],
+                           dtype=torch.int32, device=DEV)
+        with torch.no_grad():
+            a = model.forward(params, {"tokens": seq})[0].float()
+            b = plain.forward(params, {"tokens": seq})[0].float()
+        gaps.append(forced_gap(a, rec))
+        spread = max(spread, float((a - b).abs().max()))
+        top = max(top, float(b.abs().max()))
+    r.update(teacher_forced_shortfall=max(g for g, _ in gaps),
+             argmax_agreement=float(np.mean([m for _, m in gaps])),
+             forced_forwards=len(gaps), k2_vs_plain_logits=spread,
+             plain_max_abs_logit=top)
+    return r
+
+
+def drop_count_cost(cfg, scfg, step_ms: float) -> dict:
+    """CUDA-event time of the drop counter's work in one decode step — one
+    ``count_dropped`` a layer at the decode step's shapes — beside the
+    serve's mean engine step (``step_ms``)."""
+    sizes = [torch.zeros(cfg.n_experts, dtype=torch.int64, device=DEV)]
+    C = moe_mod._capacity(cfg, scfg.max_seqs)
+
+    def step(_):
+        for _ in range(cfg.num_layers):
+            moe_mod.count_dropped(sizes, C)
+
+    ms = time_ms(step, iters=50)
+    moe_mod.reset_dropped()
+    return {"ms_per_decode_step": ms, "mean_engine_step_ms": step_ms,
+            "share": ms / step_ms}
+
+
+def moe_obspa_blocks(cfg) -> int:
+    """K4 launches of an OBSPA prune of a moe model at ratio 0.5: one per
+    128-column block of ``attn.wo`` (K = H·DV), of the experts' ``w_down``
+    (K = moe_d_ff; all experts in one launch) and of the shared
+    ``w_down`` (K = shared width), every layer."""
+    per_layer = math.ceil(cfg.n_heads * cfg.v_head_dim_ / k4.BLOCK) \
+        + math.ceil(cfg.moe_d_ff / k4.BLOCK) \
+        + math.ceil(cfg.n_shared_experts * cfg.shared_d_ff / k4.BLOCK)
+    return cfg.num_layers * per_layer
+
+
+def phase_moe_path(seed: int, quick: bool) -> dict:
+    print("phase 13: the moe family — qwen2-moe-a2.7b served, L1- and "
+          "OBSPA-pruned and served again (K1, K2 and K4)", flush=True)
+    rng = np.random.default_rng([seed, 13, 1])
+    cfg = get_config("qwen2-moe-a2.7b")
+    if quick:
+        cfg = cfg.replace(num_layers=4)
+    L = cfg.num_layers
+    model = build(cfg)
+    t0 = time.time()
+    params = model.init(seed=0)
+    torch.cuda.synchronize()
+    res = {"model": cfg.name, "layers": L, "params": n_params(params),
+           "init_s": time.time() - t0}
+    print(f"  model: {cfg.name} L={L} d={cfg.d_model} H={cfg.n_heads} "
+          f"KH={cfg.n_kv_heads} hd={cfg.head_dim_} experts {cfg.n_experts} "
+          f"top-{cfg.top_k} x {cfg.moe_d_ff}, shared {cfg.n_shared_experts} "
+          f"x {cfg.shared_d_ff}, capacity factor {cfg.capacity_factor}, "
+          f"V={cfg.vocab_size}, {cfg.dtype}; {res['params']} parameters "
+          f"(param_count {cfg.param_count()}); init {res['init_s']:.2f}s",
+          flush=True)
+    if res["params"] != cfg.param_count():
+        raise AssertionError("param_count differs from the tensors")
+    scfg = ServeConfig(max_seqs=16, block_size=16, max_len=512,
+                       chunk_size=128)
+    n_req, gen = (6, 8) if quick else (16, 32)
+    res["serve_config"] = dataclasses.asdict(scfg)
+    t_path = time.time()
+    reset_launches()                         # counts = this path's only
+    k2.reset_launches()
+    k4.reset_launches()
+    want = {"k1": 0, "k2": 0, "k4": 0}
+
+    # dense: layer checks, the published-capacity serve, the no-drop twin
+    t0 = time.time()
+    blocks = moe_blocks_vs_plain(model, params)
+    print_moe_blocks("dense", blocks)
+    want["k2"] += L
+    res["dense_blocks"] = dict(blocks, wall_s=time.time() - t0)
+    reqs = make_requests(rng, cfg.vocab_size, n_req, gen, 128, 448, 128)
+    r = serve_moe(model, params, reqs, scfg)
+    print_moe_serve(f"dense, capacity factor {cfg.capacity_factor}", r)
+    want["k1"] += L * int(r["decode_calls"] + r["prefill_calls"])
+    res["dense"] = r
+    n_twin = min(MOE_TWIN_LAYERS, L)
+    twin_cfg = cfg.replace(num_layers=n_twin, dtype="float32",
+                           capacity_factor=cfg.n_experts / cfg.top_k)
+    twin = build(twin_cfg)
+    twin_params = f32_tree(first_layers(params, n_twin))
+    twin_reqs = make_requests(rng, cfg.vocab_size, 8, 16, 64, 256, 64)
+    r = moe_twin_vs_oracle(twin, twin_params, twin_reqs,
+                           dataclasses.replace(scfg, max_seqs=8))
+    print_moe_serve(f"no-drop twin (float32, first {n_twin} layers, "
+                    f"capacity factor {twin_cfg.capacity_factor:g})", r)
+    print(f"  no-drop twin: every request's {r['gen']} tokens equal the "
+          f"oracle's (generate, {r['oracle_s']:.2f}s)", flush=True)
+    want["k1"] += n_twin * int(r["decode_calls"] + r["prefill_calls"])
+    res["no_drop_twin"] = r
+    del twin, twin_params
+    torch.cuda.empty_cache()
+    # bf16 through the engine (K1's bf16 instances) held to Model.forward
+    # (K2) by teacher forcing, on the twin's requests: routing is discrete,
+    # so the published routing is only read (a near-tie flips an expert
+    # between the engine's rounding and the forward's); the all-experts
+    # twin (every token to all 60 experts once: no choice, no drop) is held
+    # at 2 layers to two bf16 steps of the largest logit, as phase 12 holds
+    # its shallow model, and at full depth to twice the forwards' own
+    # rounding spread plus 0.05, as phase 9 holds its kernels
+    n_sh = min(SHALLOW_LAYERS, L)
+    forced = (("published routing", n_sh, cfg.top_k,
+               twin_cfg.capacity_factor),
+              ("all experts", n_sh, cfg.n_experts, 1.0),
+              ("all experts", L, cfg.n_experts, 1.0))
+    res["forced_bf16"] = []
+    for name, n, k, cf in forced:
+        m = build(cfg.replace(num_layers=n, top_k=k, capacity_factor=cf))
+        r = moe_forced(m, first_layers(params, n), twin_reqs,
+                       dataclasses.replace(scfg, max_seqs=8))
+        want["k1"] += n * int(r["decode_calls"] + r["prefill_calls"])
+        want["k2"] += n * r["forced_forwards"]
+        limit = None if k != cfg.n_experts else (
+            BF16_SHALLOW_TOL * r["plain_max_abs_logit"] if n == n_sh
+            else 2 * r["k2_vs_plain_logits"] + 0.05)
+        r.update(name=name, layers=n, top_k=k, capacity_factor=cf,
+                 shortfall_limit=limit)
+        print(f"  bfloat16 {name} ({n} layers, top-{k}, capacity factor "
+              f"{cf:g}): {r['requests']} x {r['gen']} tokens in "
+              f"{r['wall_s']:.2f}s, 0 dropped | teacher forcing vs "
+              f"Model.forward (K2): max logit shortfall "
+              f"{r['teacher_forced_shortfall']:.4f} ("
+              + ("read only" if limit is None else f"limit {limit:.4f}")
+              + f"), argmax agreement {r['argmax_agreement']:.3f}; forward "
+              f"on K2 vs plain {r['k2_vs_plain_logits']:.4f}, max|logit| "
+              f"{r['plain_max_abs_logit']:.3f}", flush=True)
+        r.pop("outputs")
+        res["forced_bf16"].append(r)
+        del m
+        if limit is not None and r["teacher_forced_shortfall"] > limit:
+            raise AssertionError(f"bf16 {name}, {n} layers: teacher-forced "
+                                 f"shortfall {r['teacher_forced_shortfall']}"
+                                 f" > {limit}")
+    torch.cuda.empty_cache()
+    d = res["dense"]
+    res["drop_counter"] = drop_count_cost(cfg, scfg,
+                                          1e3 * d["wall_s"] / d["steps"])
+    print(f"  drop counter: {res['drop_counter']['ms_per_decode_step']:.4f}"
+          f" ms a decode step ({L} layers, CUDA events), "
+          f"{100 * res['drop_counter']['share']:.2f} % of the dense serve's "
+          f"mean step {res['drop_counter']['mean_engine_step_ms']:.2f} ms",
+          flush=True)
+
+    # L1 at 0.5, all layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pr = prune_model(model, params, 0.5, criterion="l1")
+    torch.cuda.synchronize()
+    rep = {"ratio": 0.5, "criterion": "l1", "wall_s": time.time() - t0,
+           "seconds": pr.report["seconds"],
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    pc = pr.cfg
+    rep["pruned_cfg"] = dict(moe_dims(pc), params=n_params(pr.params))
+    print_prune("l1 prune", dict(moe_dims(cfg), params=res["params"]),
+                rep["pruned_cfg"], rep)
+    if moe_dims(pc) != QWEN2_MOE_PRUNED or pc.d_model != cfg.d_model \
+            or rep["pruned_cfg"]["params"] != pc.param_count():
+        raise AssertionError(f"unexpected pruned config {pc}")
+    res["l1_prune"] = rep
+    l1_model, l1_params = build(pc), pr.params
+    del pr
+    blocks = moe_blocks_vs_plain(l1_model, l1_params)
+    print_moe_blocks("l1", blocks)
+    want["k2"] += L
+    res["l1_blocks"] = blocks
+    reqs = make_requests(rng, cfg.vocab_size, n_req, gen, 128, 448, 128)
+    r = serve_moe(l1_model, l1_params, reqs, scfg)
+    print_moe_serve("l1-pruned", r)
+    want["k1"] += L * int(r["decode_calls"] + r["prefill_calls"])
+    res["l1"] = r
+    del l1_model, l1_params
+    torch.cuda.empty_cache()
+
+    # OBSPA at 0.5, the first MOE_OBSPA_LAYERS layers
+    n_ob = min(MOE_OBSPA_LAYERS, L)
+    ob_cfg = cfg.replace(num_layers=n_ob)
+    ob_model, ob_params = build(ob_cfg), first_layers(params, n_ob)
+    calib = batches(ob_cfg, "datafree", 4, 4, 512, seed=5)
+    pr, rep = obspa_on_card(ob_model, ob_params, calib)
+    want["k4"] += moe_obspa_blocks(ob_cfg)
+    pc = pr.cfg
+    rep["layers"] = n_ob
+    rep["pruned_cfg"] = dict(moe_dims(pc), params=n_params(pr.params))
+    print_prune(f"obspa prune (first {n_ob} layers)",
+                dict(moe_dims(ob_cfg), params=n_params(ob_params)),
+                rep["pruned_cfg"], rep)
+    if moe_dims(pc) != QWEN2_MOE_PRUNED or pc.d_model != cfg.d_model:
+        raise AssertionError(f"unexpected pruned config {pc}")
+    if not rep["all_below_slicing"]:
+        raise AssertionError("an OBSPA consumer's layer-output error is not "
+                             "below plain slicing")
+    res["obspa_prune"] = rep
+    ob_model, ob_params = build(pc), pr.params
+    del pr
+    blocks = moe_blocks_vs_plain(ob_model, ob_params)
+    print_moe_blocks("obspa", blocks)
+    want["k2"] += n_ob
+    res["obspa_blocks"] = blocks
+    reqs = make_requests(rng, cfg.vocab_size, n_req, gen, 128, 448, 128)
+    r = serve_moe(ob_model, ob_params, reqs, scfg)
+    print_moe_serve(f"obspa-pruned ({n_ob} layers)", r)
+    want["k1"] += n_ob * int(r["decode_calls"] + r["prefill_calls"])
+    res["obspa"] = r
+    del ob_model, ob_params
+
+    torch.cuda.synchronize()
+    k1_counts = launch_counts()
+    got = {"k1": k1_counts["total"], "k2": k2.launch_count(),
+           "k4": k4.launch_count()}
+    res["wall_s"] = time.time() - t_path
+    res["launches"] = dict(got, k1_decode=k1_counts["decode"],
+                           k1_prefill=k1_counts["prefill"])
+    res["expected_launches"] = want
+    for name in ("dense", "no_drop_twin", "l1", "obspa"):
+        res[name].pop("outputs")
+    print(f"  moe path {res['wall_s']:.2f}s wall; launches {got} (K1 decode "
+          f"{k1_counts['decode']}, prefill {k1_counts['prefill']}); "
+          f"expected {want}", flush=True)
+    if got != want or min(got.values()) < 1 or not (
+            k1_counts["decode"] and k1_counts["prefill"]):
+        raise AssertionError(f"moe path launches {got} != {want}")
+    del model, params
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
-                    help="cut phases 4, 7, 9, 11 and 12 to 4 layers and a "
-                         "few requests or steps")
+                    help="cut phases 4, 7, 9, 11, 12 and 13 to 4 layers and "
+                         "a few requests or steps")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode and one prefill step with "
                          "torch.profiler: device busy share, top kernels")
@@ -3273,8 +3840,23 @@ def main() -> int:
                if k["spill_bytes"]]
     if spilled:
         raise AssertionError(f"K3 / K4 instances spill registers: {spilled}")
+    moe_instances = {"K1": path_instances(k1_build, "K1"),
+                     "K2": path_instances(k2_build, "K2")}
 
+    phase_s: dict[str, float] = {}
+    t_lap = [t_start]
+
+    def lap(name: str) -> None:
+        """Seconds since the previous lap, kept under ``name``."""
+        now = time.time()
+        phase_s[name] = now - t_lap[0]
+        t_lap[0] = now
+        print(f"  [{name}: {phase_s[name]:.1f}s; {now - t_start:.1f}s since "
+              f"the start]", flush=True)
+
+    lap("phases 1-2")
     worst = phase_kernel_checks(rng, args.seed)
+    lap("phase 3")
     print("phase 3b: kernel times at the main path's shapes (bf16)",
           flush=True)
     kernels = [
@@ -3283,10 +3865,18 @@ def main() -> int:
         time_kernel("paged_attention.prefill", rng, C=128, NB=80,
                     prefill=True, iters=12),
     ]
+    # qwen2-moe-a2.7b's shapes (phase 13), from a generator of their own
+    moe_rng = np.random.default_rng([args.seed, 13, 2])
+    k1_moe = [time_kernel(f"{k['name']} qwen2-moe", moe_rng, C=c, NB=32,
+                          prefill=c > 1, iters=it, shape=K1_TIMED_MOE)
+              for k, c, it in ((kernels[0], 1, 40), (kernels[1], 128, 12))]
+    lap("phase 3b")
     k4_rel = phase_k4_checks()
     print("phase 6b: K4 time at the main path's tiles (f32)", flush=True)
     k4_entry, k4_sweep = time_k4()
+    lap("phases 6-6b")
     main_res = phase_main_path(rng, args.quick, args.profile)
+    lap("phase 4")
     kernels[0]["launches"] = main_res["k1_launches"]["decode"]
     kernels[1]["launches"] = main_res["k1_launches"]["prefill"]
     kernels[0]["build"] = kernels[1]["build"] = build_summary(k1_build)
@@ -3294,6 +3884,7 @@ def main() -> int:
         k["max_abs_err"] = max(k["max_abs_err"], worst)
     dev_res = phase_device_code(rng)
     prune_res = phase_prune_path(rng, args.quick)
+    lap("phases 5, 7")
     k4_entry["launches"] = prune_res["k4_launches"]
     k4_entry["max_rel_err_vs_oracle"] = k4_rel
     k4_entry["build"] = build_summary(k4_build)
@@ -3302,7 +3893,9 @@ def main() -> int:
     print("phase 8b: K3 time at the full-width and two pruned forwards' "
           "shapes", flush=True)
     k3_entry = time_k3()
+    lap("phases 8-8b")
     mamba_res = phase_mamba2_path(rng, args.quick)
+    lap("phase 9")
     k3_entry["launches"] = mamba_res["k3_launches"]
     k3_entry["max_rel_err"] = k3_rel
     k3_entry["build"] = build_summary(k3_build)
@@ -3311,14 +3904,21 @@ def main() -> int:
     print("phase 10b: K2 time at the main path's shape", flush=True)
     k2_entry = time_k2()
     k2_entry["build"] = build_summary(k2_build)
+    k2_moe = time_k2(shape=K2_MOE)
+    lap("phases 10-10b")
     any_res = phase_any_time(args.quick, args.seed)
+    lap("phase 11")
     k2_entry["launches"] = any_res["k2_launches"]
     k2_entry["launches_teacher_forcing"] = {
         "phase_4": main_res["k2_launches_teacher_forcing"],
         "phase_7": prune_res["k2_launches"]}
     k2_entry["max_abs_err"] = max(k2_entry["max_abs_err"], k2_err)
     kernels.append(k2_entry)
-    hybrid_res = phase_hybrid_path(rng, args.quick)
+    # phase 12 draws its prompts from a generator of its own, so that its
+    # launch counts do not depend on what the earlier phases drew
+    hybrid_res = phase_hybrid_path(np.random.default_rng([args.seed, 12, 1]),
+                                   args.quick)
+    lap("phase 12")
     hl = hybrid_res["launches"]
     kernels[0]["launches_hybrid"] = hl["k1_decode"]
     kernels[1]["launches_hybrid"] = hl["k1_prefill"]
@@ -3326,6 +3926,23 @@ def main() -> int:
     k4_entry["launches_mamba2"] = mamba_res["k4_launches"]
     k3_entry["launches_hybrid"] = hl["k3"]
     k2_entry["launches_hybrid"] = hl["k2"]
+    moe_res = phase_moe_path(args.seed, args.quick)
+    lap("phase 13")
+    ml = moe_res["launches"]
+    kernels[0]["launches_moe"] = ml["k1_decode"]
+    kernels[1]["launches_moe"] = ml["k1_prefill"]
+    k2_entry["launches_moe"] = ml["k2"]
+    k4_entry["launches_moe"] = ml["k4"]
+    for entry, timed in ((kernels[0], k1_moe[0]), (kernels[1], k1_moe[1]),
+                         (k2_entry, k2_moe)):
+        entry["qwen2_moe"] = {
+            key: timed.get(key) for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_gqa_ms", "device_ms", "share_of_bound",
+                "max_abs_err", "instance", "shape", "bytes", "flops")}
+    for label, ks in moe_instances.items():
+        entry = kernels[0] if label == "K1" else k2_entry
+        entry["qwen2_moe_instances"] = ks
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was never launched by its "
@@ -3341,6 +3958,8 @@ def main() -> int:
     print(json.dumps({"mamba2_path": mamba_res}))
     print(json.dumps({"any_time_path": any_res}))
     print(json.dumps({"hybrid_path": hybrid_res}))
+    print(json.dumps({"moe_path": moe_res}))
+    print(json.dumps({"phase_seconds": phase_s}))
     print(f"total {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

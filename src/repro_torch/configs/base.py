@@ -140,7 +140,7 @@ class ArchConfig:
             # in_proj produces [x, z, B, C, dt]; out_proj back to d
             per_layer += d * (2 * di + 2 * ns + nh) + di * d
             per_layer += self.ssm_conv * (di + 2 * ns)      # conv1d
-            per_layer += 2 * nh                              # A_log, D
+            per_layer += 3 * nh + di            # A_log, D, dt_bias; norm
         if self.n_experts:
             per_layer += d * self.n_experts                   # router
             per_layer += self.n_experts * 3 * d * self.moe_d_ff
@@ -149,7 +149,8 @@ class ArchConfig:
                 per_layer += d                                # shared gate
         elif self.d_ff:
             per_layer += 3 * d * self.d_ff                    # SwiGLU
-        per_layer += 2 * d                                    # two RMSNorms
+        # RMSNorms: ln1, and ln2 before an FFN (an ssm layer has none)
+        per_layer += d if self.family == "ssm" else 2 * d
         embed = (AUDIO_FRAME_DIM * d if self.family == "audio"
                  else self.vocab_size * d)
         total = L * per_layer + embed + d                     # embed + final norm

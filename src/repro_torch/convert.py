@@ -6,7 +6,9 @@ as a dict (``dataclasses.asdict``); this module itself imports no JAX.
 Key paths, the stacked ``(L, ...)`` layer layout, the 3-D head layouts
 and the dtypes are kept — for the SSM leaves too: ``w_x``/``w_z``
 ``(L, d, nh, hp)``, ``w_out`` ``(L, nh, hp, d)``, and ``A_log``, ``D``,
-``dt_bias`` in f32 whatever the model dtype.
+``dt_bias`` in f32 whatever the model dtype; and for the MoE leaves:
+``moe.router`` ``(L, d, E)`` and ``moe.shared.gate`` ``(L, d, 1)`` in f32,
+``w_gate`` / ``w_up`` ``(L, E, d, f)``, ``w_down`` ``(L, E, f, d)``.
 """
 from __future__ import annotations
 

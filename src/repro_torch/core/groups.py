@@ -228,3 +228,61 @@ def build_groups(g: CompGraph) -> list[Group]:
                 covered.add((pp, aa))
 
     return groups
+
+
+def merge_by_hints(groups: list[Group],
+                   hints: list[list[tuple[str, int]]]) -> list[Group]:
+    """Fuse groups whose seeds are semantically coupled through *data values*
+    (index arithmetic invisible to shape propagation).
+
+    The canonical case is MoE: router column ``e`` and expert ``e``'s weights
+    are coupled through top-k indices, which neither ONNX nor jaxpr shape
+    analysis can see.  A hint is a list of ``(param_path_suffix, axis)``; all
+    groups whose seed matches one entry of the same hint (within the same
+    layer prefix) are merged unit-by-unit.  This is SPA's "define rules for
+    novel operators" escape hatch (paper App. A.3) made first-class.
+    """
+    out: list[Group] = []
+    used: set[int] = set()
+    for hint in hints:
+        # bucket matching groups by their path prefix (layer)
+        buckets: dict[str, list[tuple[int, Group]]] = {}
+        for gi, gr in enumerate(groups):
+            seed_path, seed_axis = gr.key.rsplit(":", 1)
+            for suf, ax in hint:
+                if seed_path.endswith(suf) and int(seed_axis) == ax:
+                    prefix = seed_path[: -len(suf)]
+                    buckets.setdefault(prefix, []).append((gi, gr))
+        for prefix, members in buckets.items():
+            if len(members) < 2:
+                continue
+            n_units = {m.n_units for _, m in members}
+            if len(n_units) != 1:
+                continue
+            base_i, base = members[0]
+            merged_units = []
+            for u in range(base.n_units):
+                slices = []
+                for _, m in members:
+                    slices.extend(m.units[u].slices)
+                merged_units.append(CoupledChannels(slices))
+            closure = dict(base.closure)
+            for _, m in members[1:]:
+                closure.update(m.closure)
+            out.append(Group(
+                key=base.key + "+hint",
+                kind=base.kind,
+                units=merged_units,
+                protected=any(m.protected for _, m in members),
+                reason=base.reason,
+                closure=closure,
+            ))
+            used.update(gi for gi, _ in members)
+    for gi, gr in enumerate(groups):
+        if gi not in used:
+            out.append(gr)
+    return out
+
+
+MOE_HINTS = [[("moe.router", 1), ("moe.w_gate", 0), ("moe.w_up", 0),
+              ("moe.w_down", 0)]]

@@ -15,8 +15,14 @@ Producer weights (whose *output* channels die) are simply sliced; a group
 with no product consumer falls back to magnitude scoring with no
 reconstruction, as in the reference.  The consumers are found on the ATen
 graph of every ported family: ``attn.wo`` and ``mlp.w_down`` (dense and
-hybrid) and the SSD block's ``ssm.w_out`` over its heads and head_dim (ssm
-and hybrid).  The SSM state group has none (``B`` meets ``C`` inside the
+hybrid), the SSD block's ``ssm.w_out`` over its heads and head_dim (ssm
+and hybrid), and for the moe family the experts' ``moe.w_down`` ``(E, f,
+d)`` (the expert axis a batch axis of its product: one Hessian per expert
+from the rows dispatched to it, capacity padding included, as the
+reference counts them; all experts sweep in one K4 launch, on its grid's
+y) and the shared experts' ``moe.shared.w_down``.  Whole experts (router
+column + expert weights, merged by ``MOE_HINTS``) have no consumer: an
+expert is a batch axis, not a contraction, so magnitude scores them.  The SSM state group has none (``B`` meets ``C`` inside the
 scan, a product of two activations), so magnitude scores it.
 
 Everything runs on the device the parameters live on: activations are
@@ -35,12 +41,12 @@ import torch
 
 from repro_torch.core.graph import (CompGraph, OpNode, tree_map_paths,
                                     tree_paths)
-from repro_torch.core.groups import Group, build_groups
+from repro_torch.core.groups import Group
 from repro_torch.core.importance import leaf_scores, unit_scores
 from repro_torch.core.pruner import (PhaseClock, PruneResult,
                                      apply_pruning, delete_positions,
-                                     infer_config, prunable, restack,
-                                     select_units, trace_model)
+                                     group_graph, infer_config, prunable,
+                                     restack, select_units, trace_model)
 from repro_torch.kernels.obspa_update import obspa_sweep, obspa_sweep_batched
 from repro_torch.kernels.obspa_update.ops import full_f32_matmul
 from repro_torch.models import transformer as tf
@@ -298,16 +304,16 @@ def reconstruct(ap, groups: list[Group], pruned: dict[str, list[int]],
 # Top level
 # ---------------------------------------------------------------------------
 
-OBSPA_FAMILIES = ("dense", "ssm", "hybrid")
+OBSPA_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def require_obspa_family(cfg) -> None:
-    """OBSPA is ported for the dense, ssm and hybrid families; the others
-    (and their conv / expert consumers) wait for their ROADMAP.md item."""
+    """OBSPA is ported for the dense, moe, ssm and hybrid families; the
+    others (and their conv consumers) wait for their ROADMAP.md item."""
     if cfg.family not in OBSPA_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: OBSPA for the {cfg.family!r} family is not ported "
-            f"yet — ROADMAP.md Queue 1 item 14 (MoE, CNN, audio, VLM)")
+            f"yet — ROADMAP.md Queue 1 item 14 (CNN, audio, VLM)")
 
 
 def obspa_prune(model, params, ratio: float, calib_batches: list,
@@ -324,7 +330,7 @@ def obspa_prune(model, params, ratio: float, calib_batches: list,
     # the trace on the calibration data, and the trace is shape-specialized
     graph, ap = trace_model(model, params, batch=calib_batches[0])
     clock.lap("trace")
-    targets = prunable(build_groups(graph))
+    targets = prunable(group_graph(cfg, graph))
     consumers = find_consumers(graph, targets)
     clock.lap("group")
     H, count = hessian_sums(graph, ap, calib_batches, consumers)
@@ -378,9 +384,11 @@ def layer_output_errors(model, params, result: PruneResult,
                         calib_batches: list) -> dict[str, tuple[float, float]]:
     """For every consumer whose input columns were pruned: the summed
     squared layer-output error over the calibration tokens, ``‖X(W − W')‖²``,
-    for W' = the pruned model's weight (reconstructed, zeros at the pruned
-    columns) and for W' = W with the same columns simply cut.  X are the
-    dense model's activations, which is what OBSPA's Hessian sees.
+    for W' = the pruned model's weight (reconstructed, zeros at every
+    deleted position) and for W' = W with the same positions simply cut.
+    Both zero a deleted batch entry whole (a pruned expert of ``moe.w_down``),
+    so the two differ only where OBSPA reconstructed.  X are the dense
+    model's activations, which is what OBSPA's Hessian sees.
     Returns {"path@op": (obspa error, plain-slicing error)}."""
     require_obspa_family(model.cfg)
     graph, ap = trace_model(model, params, batch=calib_batches[0])
@@ -401,15 +409,15 @@ def layer_output_errors(model, params, result: PruneResult,
                         if p == path and a in c.param_contract]
                 if name in out or not cols:
                     continue
-                w2d = _dot_w2d(dense[path].float(), c)[0]
+                w = dense[path].float()
+                w2d = _dot_w2d(w, c)[0]
                 p2d = _dot_w2d(_embed(pruned[path].float(), shape, dele,
                                       path), c)[0]
-                cut = torch.zeros(w2d.shape[-1], device=w2d.device)
-                cut[torch.from_numpy(np.concatenate(cols)).to(
-                    w2d.device)] = 1.0
+                sliced = apply_pruning({path: w}, dele)[path]
+                c2d = _dot_w2d(_embed(sliced, shape, dele, path), c)[0]
                 h = H[hkey(c)]
                 errs = []
-                for d in (w2d - p2d, w2d * cut):
+                for d in (w2d - p2d, w2d - c2d):
                     errs.append(float((torch.matmul(d, h) * d).sum()))
                 out[name] = (errs[0], errs[1])
     return out

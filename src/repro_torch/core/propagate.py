@@ -19,7 +19,9 @@ low padding of its axis, ``cumsum`` keeps them (the reference's scan rule),
 and ``conv1d`` couples channels as ``conv_general_dilated`` does, in
 PyTorch's layout (input ``(N, C_in, T)``, weight ``(C_out, C_in/groups,
 K)``, output ``(N, C_out, T)``; the depthwise conv of the SSM block has
-``groups = C_in``).
+``groups = C_in``).  For the MoE dispatch: ``sort`` / ``argsort`` /
+``topk`` follow the reference's sort and top_k rules, ``index_put`` its
+scatter rule and ``stack`` the concatenate rule with a new axis.
 """
 from __future__ import annotations
 
@@ -475,6 +477,87 @@ def _index(op, role, idx, axis, pos):
     if axis < k + ni:
         return []
     return [(operand, axis - ni + 1, pos)]
+
+
+@rule("index_put")
+def _index_put(op, role, idx, axis, pos):
+    """``x.index_put(idx, values)`` with one index tensor at axis k (the
+    reference's scatter rule): x and the output couple on every axis, and
+    with the values on the axes the index leaves whole; the indexed axis
+    and the index tensor couple to nothing."""
+    indices = op.params["args"][1]
+    tensors = [i for i, t in enumerate(indices) if t is not None]
+    if len(tensors) != 1:
+        raise GraphError("index_put with several index tensors is not "
+                         "supported")
+    k = tensors[0]
+    operand, values, y = op.invars[0], op.invars[-1], op.outvars[0]
+    ni = len(indices[k].shape)
+    full = len(values.shape) == len(operand.shape) - 1 + ni
+
+    def values_axis(a):
+        if not full or a == k:
+            return None
+        u = a if a < k else a - 1 + ni
+        return u if values.shape[u] == operand.shape[a] else None
+
+    if role == "in" and idx == len(op.invars) - 1:
+        if not full or k <= axis < k + ni:
+            return []
+        a = axis if axis < k else axis - ni + 1
+        if values.shape[axis] != operand.shape[a]:
+            return []
+        return [(operand, a, pos), (y, a, pos)]
+    if role == "in" and idx != 0:
+        return []
+    out = [(y if role == "in" else operand, axis, pos)]
+    u = values_axis(axis)
+    if u is not None:
+        out.append((values, u, pos))
+    return out
+
+
+@rule("stack")
+def _stack(op, role, idx, axis, pos):
+    """``stack(xs, dim)``: an input axis maps to the output axis past the
+    new one, and couples the same axis of the other inputs; the new axis
+    couples to nothing."""
+    y = op.outvars[0]
+    dim = _dim(_arg(op, 1, "dim", 0), len(y.shape))
+    if role == "in":
+        out = [(y, axis + (1 if axis >= dim else 0), pos)]
+        out += [(v, axis, pos) for i, v in enumerate(op.invars) if i != idx]
+        return out
+    if axis == dim:
+        return []
+    return [(v, axis - (1 if axis > dim else 0), pos) for v in op.invars]
+
+
+# ---------------------------------------------------------------------------
+# Sorting (the MoE dispatch): positions along the sorted axis mix
+# ---------------------------------------------------------------------------
+
+@rule("sort", "argsort")
+def _sort(op, role, idx, axis, pos):
+    src = _src(op, role, idx)
+    dim = _dim(_arg(op, 1, "dim", -1), len(src.shape))
+    if axis == dim:
+        return []
+    return [(node, axis, pos) for node, _, _ in _others(op, role, idx)
+            if axis < len(node.shape)]
+
+
+@rule("topk")
+def _topk(op, role, idx, axis, pos):
+    """The reference's ``top_k`` rule: every axis but the selected one maps
+    the input onto the values."""
+    x = op.invars[0]
+    dim = _dim(_arg(op, 2, "dim", -1), len(x.shape))
+    if axis == dim:
+        return []
+    if role == "in":
+        return [(op.outvars[0], axis, pos)]
+    return [(x, axis, pos)]
 
 
 _NO_PROP = ("arange", "full_like", "zeros_like", "ones_like", "empty_like",

@@ -9,8 +9,11 @@ goes (layers stay uniform, which the stacked layer layout needs).  The
 reference's ``global`` mode serves the CNN family and waits for its slice.
 ``align_units`` keeps its reference meaning and default (1: no rounding).
 
-The dense, ssm and hybrid families are ported; the CNN and MoE branches raise
-``NotImplementedError`` naming their ROADMAP.md item.
+The dense, moe, ssm and hybrid families are ported; the CNN branch raises
+``NotImplementedError`` naming its ROADMAP.md item.  For the moe family the
+groups found by propagation are merged by the reference's ``MOE_HINTS``:
+router column ``e`` and expert ``e``'s weights are coupled through the
+top-k indices, which no shape rule can see.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.graph import (CompGraph, trace_graph, tree_map_paths,
                                     tree_paths)
-from repro_torch.core.groups import Group, build_groups
+from repro_torch.core.groups import (MOE_HINTS, Group, build_groups,
+                                     merge_by_hints)
 from repro_torch.core.importance import (GRADIENT_CRITERIA,
                                          hessian_grad_product, leaf_scores,
                                          unit_scores)
@@ -93,15 +97,23 @@ def trace_model(model, params, batch=None) -> tuple[CompGraph, Any]:
     return g, ap
 
 
+def group_graph(cfg: ArchConfig, g: CompGraph) -> list[Group]:
+    """The graph's groups, merged by ``MOE_HINTS`` when the config has
+    experts (as the reference's ``analyze`` merges them)."""
+    groups = build_groups(g)
+    if cfg.n_experts:
+        groups = merge_by_hints(groups, MOE_HINTS)
+    return groups
+
+
 def analyze(model, params, clock: PhaseClock | None = None
             ) -> tuple[CompGraph, list[Group], Any]:
     """Trace + group.  Returns (graph, groups, analysis-form params); a
-    ``clock`` gets a lap for each of the two.  The reference's MoE hints
-    (``merge_by_hints``) wait for the MoE slice."""
+    ``clock`` gets a lap for each of the two."""
     g, ap = trace_model(model, params)
     if clock is not None:
         clock.lap("trace")
-    groups = build_groups(g)
+    groups = group_graph(model.cfg, g)
     if clock is not None:
         clock.lap("group")
     return g, groups, ap
@@ -199,6 +211,13 @@ def infer_config(cfg: ArchConfig, analysis_params) -> ArchConfig:
         kw["v_head_dim"] = int(layer0["attn"]["wv"].shape[2])
     if "mlp" in layer0:
         kw["d_ff"] = int(layer0["mlp"]["w_down"].shape[0])
+    if "moe" in layer0:
+        kw["n_experts"] = int(layer0["moe"]["router"].shape[1])
+        kw["moe_d_ff"] = int(layer0["moe"]["w_down"].shape[1])
+        kw["top_k"] = min(cfg.top_k, kw["n_experts"])
+        if cfg.n_shared_experts:
+            total = int(layer0["moe"]["shared"]["w_down"].shape[0])
+            kw["shared_d_ff"] = max(total // cfg.n_shared_experts, 1)
     if "ssm" in layer0:
         kw["ssm_heads_override"] = int(layer0["ssm"]["w_x"].shape[1])
         kw["ssm_head_dim"] = int(layer0["ssm"]["w_x"].shape[2])

@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-_LATER = "ROADMAP.md Queue 1 item 14 (MoE, CNN, audio, VLM)"
+_LATER = "ROADMAP.md Queue 1 item 14 (CNN, audio, VLM)"
 
 
 @dataclasses.dataclass

@@ -9,6 +9,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --reduced --prune-ratio 0.5 [--obspa] --device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
+      --reduced --prune-ratio 0.5 [--obspa] --device cpu
+
 Runs on the CUDA device; ``--device cpu`` asks for the CPU explicitly (the
 paged-attention kernel then gives way to its plain PyTorch version).  The
 model is random-initialised from ``--seed``.
@@ -26,7 +29,11 @@ tokens, the reference CLI's calibration), whose sweeps run the K4 kernel on
 the card.  ``--arch mamba2-1.3b`` serves the ssm family and ``--arch
 hymba-1.5b`` the hybrid one (no prefix caching for either: the recurrent
 state is per slot); both prune by magnitude or by OBSPA, and the pruned
-model's line prints its attention and SSM dims.
+model's line prints its attention and SSM dims.  ``--arch qwen2-moe-a2.7b``
+serves the moe family (routed experts with shared experts; the serving
+steps pass their real tokens to the dispatch, so padding takes no expert
+capacity), and a pruned model's line adds its expert count, expert width
+and shared-expert width.
 
 ``generate`` (sequential, token-by-token over a contiguous cache) is kept as
 the correctness oracle the engine is tested against.
@@ -142,6 +149,10 @@ def main(argv: list[str] | None = None) -> None:
         if pc.family != "ssm":
             dims.append(f"heads {pc.n_heads}, kv heads {pc.n_kv_heads}, "
                         f"v_head_dim {pc.v_head_dim_}, d_ff {pc.d_ff}")
+        if pc.n_experts:
+            dims.append(f"experts {pc.n_experts} top-{pc.top_k}, moe_d_ff "
+                        f"{pc.moe_d_ff}, shared width "
+                        f"{pc.n_shared_experts * pc.shared_d_ff}")
         if pc.family == "ssm" or pc.hybrid:
             dims.append(f"ssm heads {pc.ssm_n_heads}, ssm head_dim "
                         f"{pc.ssm_head_dim}, state {pc.ssm_state}")

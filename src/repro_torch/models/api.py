@@ -31,7 +31,7 @@ class Model:
         return tf.loss_fn(params, self.cfg, batch)
 
     def forward(self, params, batch):
-        h = tf.forward(params, self.cfg, batch)
+        h, _ = tf.forward(params, self.cfg, batch)
         return tf.logits_from_hidden(params, self.cfg, h)
 
     # ----- serving -----

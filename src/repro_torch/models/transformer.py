@@ -1,8 +1,9 @@
 """Transformer backbone of the port: the dense family (GQA attention +
-SwiGLU), the ssm family (Mamba-2: SSD blocks only, no attention and no
-separate FFN) and the hybrid family (Hymba: attention and SSD heads in
-parallel on the same normed input, then SwiGLU), as the reference's
-``models/transformer.py`` runs them.
+SwiGLU), the moe family (GQA attention + routed experts, with shared
+experts for qwen2-moe), the ssm family (Mamba-2: SSD blocks only, no
+attention and no separate FFN) and the hybrid family (Hymba: attention and
+SSD heads in parallel on the same normed input, then SwiGLU), as the
+reference's ``models/transformer.py`` runs them.
 
 Parameters are a nested dict of tensors with the reference's key paths;
 ``params["layers"]`` holds every per-layer leaf stacked on a leading
@@ -11,8 +12,13 @@ Parameters are a nested dict of tensors with the reference's key paths;
 window is a static int (``layer_window``): ``cfg.sliding_window`` on the
 windowed layers, 0 (plain causal) on ``cfg.global_layers``.  The reference
 makes it data (``2**30`` on global layers) only because it scans its
-layers.  The other families (moe, vlm, audio, cnn) raise
+layers.  The other families (vlm, audio, cnn) raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
+
+The moe family's layers return the router's load-balancing loss beside the
+hidden states; ``forward`` sums it over the layers and ``loss_fn`` adds it
+to the cross entropy.  The serving steps pass each step's real tokens to
+the MoE block (``moe_mask``), so padding takes no expert capacity.
 
 In-place updates: the contiguous cache, the paged pools and the per-slot
 SSM ``conv``/``state`` tensors are written in place by every decode /
@@ -29,25 +35,26 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention import is_quantized, pool_dtype
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     cross_entropy, dense_init, dtype_of, embed_init, rms_norm, swiglu,
     swiglu_init)
 
 _LATER = {
-    "moe": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
-    "vlm": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
-    "audio": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
-    "cnn": "Queue 1 item 14 (MoE, CNN, audio, VLM)",
+    "vlm": "Queue 1 item 14 (CNN, audio, VLM)",
+    "audio": "Queue 1 item 14 (CNN, audio, VLM)",
+    "cnn": "Queue 1 item 14 (CNN, audio, VLM)",
 }
-PORTED = ("dense", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid")
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Admit the ported families (dense, ssm, hybrid); the others raise
-    naming the ROADMAP.md item that brings them."""
+    """Admit the ported families (dense, moe, ssm, hybrid); the others
+    raise naming the ROADMAP.md item that brings them."""
     if cfg.family not in PORTED or cfg.hybrid != (cfg.family == "hybrid") \
-            or cfg.n_experts or cfg.is_encoder:
+            or bool(cfg.n_experts) != (cfg.family == "moe") \
+            or cfg.is_encoder:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet — "
             f"ROADMAP.md {_LATER.get(cfg.family, 'Queue 1')}")
@@ -86,7 +93,10 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     p["attn"] = attn.attn_init(gen, cfg)
     if cfg.hybrid:
         p["ssm"] = ssm_mod.ssm_init(gen, cfg)
-    if cfg.d_ff:
+    if cfg.n_experts:
+        p["ln2"] = ones()
+        p["moe"] = moe_mod.moe_init(gen, cfg)
+    elif cfg.d_ff:
         p["ln2"] = ones()
         p["mlp"] = swiglu_init(gen, cfg.d_model, cfg.d_ff, dt)
     return p
@@ -99,14 +109,34 @@ def _stack(trees: list[dict]) -> dict:
     return torch.stack(trees)
 
 
+def _stacked_layers(gen: torch.Generator, cfg: ArchConfig) -> dict:
+    """Every layer drawn in turn and copied into ``(L, ...)`` tensors as it
+    comes, so that the device never holds the layers twice."""
+    L = cfg.num_layers
+    out = None
+    for i in range(L):
+        lp = layer_init(gen, cfg)
+        if out is None:
+            out = _tree_map(lambda t: t.new_empty((L,) + tuple(t.shape)), lp)
+        _tree_map2(lambda dst, src, i=i: dst[i].copy_(src), out, lp)
+    return out
+
+
+def _tree_map2(fn, a, b):
+    if isinstance(a, dict):
+        for k in a:
+            _tree_map2(fn, a[k], b[k])
+    else:
+        fn(a, b)
+
+
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     """Random parameters drawn from ``gen`` on ``gen.device``."""
     require_ported(cfg)
     dt = dtype_of(cfg.dtype)
     params: dict[str, Any] = {}
     params["tok_embed"] = embed_init(gen, (cfg.vocab_size, cfg.d_model), dt)
-    params["layers"] = _stack([layer_init(gen, cfg)
-                               for _ in range(cfg.num_layers)])
+    params["layers"] = _stacked_layers(gen, cfg)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt,
                                       device=gen.device)
     if not cfg.tie_embeddings:
@@ -118,12 +148,30 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
 # Per-layer forward and full forward (train / prefill)
 # ---------------------------------------------------------------------------
 
+def _ffn(lp: dict, cfg: ArchConfig, h: torch.Tensor, moe_mask=None
+         ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """The second half of a layer: routed experts or SwiGLU after ``ln2``
+    (nothing when the config has neither).  Returns (h, the MoE aux loss
+    or None)."""
+    if cfg.n_experts:
+        h2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        m_out, aux = moe_mod.moe_block(lp["moe"], cfg, h2,
+                                       token_mask=moe_mask)
+        return h + m_out, aux
+    if cfg.d_ff:
+        h2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
+        return h + swiglu(lp["mlp"], h2), None
+    return h, None
+
+
 def layer_forward(lp: dict, cfg: ArchConfig, x: torch.Tensor,
-                  positions: torch.Tensor, window: int = 0) -> torch.Tensor:
-    """One layer; ``window`` is ``layer_window(cfg, i)``."""
+                  positions: torch.Tensor, window: int = 0
+                  ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One layer; ``window`` is ``layer_window(cfg, i)``.  Returns (x, the
+    MoE aux loss, or None for the families without experts)."""
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
-        return x + ssm_mod.ssm_block(lp["ssm"], cfg, h)
+        return x + ssm_mod.ssm_block(lp["ssm"], cfg, h), None
     a_out = attn.attention_block(lp["attn"], cfg, h, positions,
                                  "sliding" if window else "causal",
                                  window=window)
@@ -131,16 +179,15 @@ def layer_forward(lp: dict, cfg: ArchConfig, x: torch.Tensor,
         x = x + a_out + ssm_mod.ssm_block(lp["ssm"], cfg, h)
     else:
         x = x + a_out
-    if cfg.d_ff:
-        h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + swiglu(lp["mlp"], h2)
-    return x
+    return _ffn(lp, cfg, x)
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
-    """Hidden states (B, S, d) after the final norm.  ``params["layers"]``
-    may be the stacked tree or a list of per-layer trees
-    (``unstack_layers``).
+def forward(params: dict, cfg: ArchConfig, batch: dict
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hidden states (B, S, d) after the final norm, the MoE aux loss
+    summed over the layers: an f32 zero for the families without experts).
+    ``params["layers"]`` may be the stacked tree or a list of per-layer
+    trees (``unstack_layers``).
 
     With ``cfg.remat`` and grad enabled, each layer keeps only its input
     for the backward pass and is recomputed there
@@ -157,16 +204,19 @@ def forward(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
                              )[None].expand(B, S)
     layers = params["layers"]
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(cfg.num_layers):
         lp = layers[i] if isinstance(layers, list) else _layer(layers, i)
         win = layer_window(cfg, i)
         if remat:
-            h = torch.utils.checkpoint.checkpoint(
+            h, a = torch.utils.checkpoint.checkpoint(
                 layer_forward, lp, cfg, h, positions, win,
                 use_reentrant=False)
         else:
-            h = layer_forward(lp, cfg, h, positions, win)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps)
+            h, a = layer_forward(lp, cfg, h, positions, win)
+        if a is not None:
+            aux = aux + a
+    return rms_norm(h, params["final_norm"], cfg.norm_eps), aux
 
 
 def logits_from_hidden(params, cfg, h) -> torch.Tensor:
@@ -177,10 +227,9 @@ def logits_from_hidden(params, cfg, h) -> torch.Tensor:
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict
             ) -> tuple[torch.Tensor, dict]:
-    h = forward(params, cfg, batch)
+    h, aux = forward(params, cfg, batch)
     logits = logits_from_hidden(params, cfg, h)
     ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
-    aux = torch.zeros((), dtype=torch.float32, device=ce.device)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -213,13 +262,15 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, device) -> dict:
 
 
 def _decode_layer(lp: dict, lc: dict, h: torch.Tensor, cfg: ArchConfig,
-                  attn_fn, ssm_fn, window: int) -> torch.Tensor:
+                  attn_fn, ssm_fn, window: int, moe_mask=None
+                  ) -> torch.Tensor:
     """One incremental layer, shared by the contiguous decode, paged decode
     and chunked paged-prefill paths.  ``attn_fn(attn_params, hn, lc,
     window) -> a_out`` and ``ssm_fn(ssm_params, hn, lc) -> delta``
     encapsulate everything the cache layouts / step widths disagree on (and
     write ``lc`` in place); the residual/FFN scaffolding stays
-    single-source."""
+    single-source.  ``moe_mask`` (B, S) marks the real tokens for expert
+    dispatch (``moe.moe_block``)."""
     hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
     if cfg.family == "ssm":
         return h + ssm_fn(lp["ssm"], hn, lc)
@@ -228,21 +279,20 @@ def _decode_layer(lp: dict, lc: dict, h: torch.Tensor, cfg: ArchConfig,
         h = h + a_out + ssm_fn(lp["ssm"], hn, lc)
     else:
         h = h + a_out
-    if cfg.d_ff:
-        h2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
-        h = h + swiglu(lp["mlp"], h2)
-    return h
+    return _ffn(lp, cfg, h, moe_mask)[0]
 
 
 def _run_decode_layers(params: dict, cfg: ArchConfig, cache: dict,
-                       x: torch.Tensor, attn_fn, ssm_fn) -> torch.Tensor:
+                       x: torch.Tensor, attn_fn, ssm_fn, moe_mask=None
+                       ) -> torch.Tensor:
     """Layer loop + final norm shared by the incremental paths.  Each
     layer's cache slice is a view into ``cache``, so its in-place writes
     land in the stacked tensors.  Returns hidden (B, S, d)."""
     h = x
     for i in range(cfg.num_layers):
         h = _decode_layer(_layer(params["layers"], i), _layer(cache, i), h,
-                          cfg, attn_fn, ssm_fn, layer_window(cfg, i))
+                          cfg, attn_fn, ssm_fn, layer_window(cfg, i),
+                          moe_mask)
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 
@@ -368,7 +418,8 @@ def paged_decode_step(params: dict, cfg: ArchConfig, cache: dict,
         lc["state"].copy_(_keep_rows(active, new.state, lc["state"]))
         return out
 
-    h = _run_decode_layers(params, cfg, cache, x, attn_fn, ssm_fn)
+    h = _run_decode_layers(params, cfg, cache, x, attn_fn, ssm_fn,
+                           None if active is None else active[:, None])
     return logits_from_hidden(params, cfg, h)[:, 0], cache
 
 
@@ -404,7 +455,10 @@ def _paged_chunk_forward(params: dict, cfg: ArchConfig, cache: dict,
         lc["state"][rows] = _keep_rows(fed, new.state, state0)
         return out
 
-    return _run_decode_layers(params, cfg, cache, x, attn_fn, ssm_fn)
+    inchunk = torch.arange(tokens.shape[1], device=valid.device
+                           )[None, :] < valid[:, None]          # real tokens
+    return _run_decode_layers(params, cfg, cache, x, attn_fn, ssm_fn,
+                              inchunk)
 
 
 def paged_prefill_step(params: dict, cfg: ArchConfig, cache: dict,

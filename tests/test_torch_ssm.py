@@ -186,8 +186,8 @@ def test_bf16_modules_vs_jax(case):
             ref, _ = jt.layer_forward(
                 jax.tree.map(lambda a: a[1], jp["layers"]), jm.cfg,
                 jnp.asarray(x, bf), jnp.asarray(pos), None)
-            got = tt.layer_forward(tt._layer(tp["layers"], 1), tm.cfg,
-                                   T(x, torch.bfloat16), T(pos))
+            got, _ = tt.layer_forward(tt._layer(tp["layers"], 1), tm.cfg,
+                                      T(x, torch.bfloat16), T(pos))
         else:
             B = 3 if case == "prefill" else 2
             conv = rng.normal(size=(B, jm.cfg.ssm_conv - 1, nh * hp + 2 * n))
