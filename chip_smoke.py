@@ -36,14 +36,18 @@ nothing of JAX or of the JAX package.  Phases:
     float64 oracle (the reference's test shapes, identity Hessian, a batched
     case, the main path's R=2048 x K=2048 / 5632 at half the columns
     pruned, phase 13's 60 experts in one launch at K 1408 and its shared
-    expert at K 22528), then K4 alone on one column block at the design's edge cases
+    expert at K 22528, phase 14's conv consumers R 512 x K 4608 and R 64 x
+    K 576 with whole channels — runs of 9 columns — pruned at 50 %, and
+    its classifier R 10 x K 512), then K4 alone on one column block at
+    the design's edge cases
     (no, one, 64 contiguous, all 128, the first or the last column pruned;
     R 1, 17, 2051; nb 4 with one shared Hinv), each call repeated bitwise,
     in place and counted; then (6b) its profiler device time at three
     tiles of R 2048 (67, 64 contiguous and all 128 columns pruned) beside
     the plain version, the card's bound and a triangular solve and product
     (``k4_yardstick``), and the whole sweep of a (2048, 5632) view with its
-    kernels counted;
+    kernels counted; the same for phase 14's R 512 x K 4608 conv view (its
+    first column block and its whole sweep);
  7. the prune-then-serve path at full width: ``tinyllama-1.1b`` OBSPA-pruned
     on the card at ratio 0.5 with data-free calibration (its sweeps launch
     K4), every reconstructed layer's output error held below plain slicing,
@@ -89,10 +93,11 @@ nothing of JAX or of the JAX package.  Phases:
     mean per-token |CE bf16 - CE f32 twin|); RF/RP, step time, tokens/s
     and peak memory of each; and a checkpoint-and-restart drill
     (``run_with_restarts``) at the reduced config;
-12. the hybrid family at full width: ``hymba-1.5b`` (32 layers, d 1600,
-    25 query heads over 5 KV heads of 64, window 1024 except on layers 0,
-    15 and 31, 50 SSM heads x 64, state 16, bf16, random weights from a
-    seed), attention and SSD heads in parallel in every layer, so K1, K2
+12. the hybrid family at full width: ``hymba-1.5b`` (cut to 16 of its 32
+    layers, ``HYMBA_LAYERS``; d 1600, 25 query heads over 5 KV heads of 64,
+    window 1024 except on the global layers 0 and 15, 50 SSM heads x 64,
+    state 16, bf16, random weights from a seed), attention and SSD heads
+    in parallel in every layer, so K1, K2
     and K3 run in one model — 16 requests of 256-1600 tokens served (four
     longer than the window), K1's visit counts held to the liveness
     predicate at each layer's window and shown below the unwindowed counts;
@@ -122,7 +127,24 @@ nothing of JAX or of the JAX package.  Phases:
     experts' ``w_down`` swept by K4 all 60 at once, every reconstructed
     consumer's layer-output error held below plain slicing; each pruned
     model checked layer by layer and served again, and the launches of K1,
-    K2 and K4 held to their formulas.
+    K2 and K4 held to their formulas;
+14. the cnn family at full width (float32, random init from a seed, data
+    from a generator of its own): ``resnet50-cifar`` (21,282,112
+    parameters) trained by ``Trainer`` 100 steps of 128 ``PrototypeImages``
+    and pruned at the paper's three times — SPA-SNIP at init then trained,
+    SPA-L1 (global) after training then fine-tuned 50 steps, OBSPA after
+    training with ID, OOD and DataFree calibration (16 x 64 images; every
+    conv consumer's (C_out, 9·C_in) view swept by K4; BatchNorm statistics
+    re-estimated for ID and OOD) — and ``vgg19-cifar`` (20,081,088) trained,
+    then L1 and OBSPA ID; each model's accuracy on 8 x 256 "eval" images,
+    RF / RP (> 1.15), seconds by prune phase, peak memory and kept
+    channels a stage; the trained and OBSPA-pruned forwards against
+    float64; the dense resnet50 with its BatchNorm recalibrated alone;
+    VGG also trained at the reference lr (its dead channels); every
+    consumer's layer-output error against plain slicing, those not below
+    redone by a float64 plain sweep, and resnet50's ID and OOD errors
+    summed over the model held below slicing's; K4's launches held to the
+    sum of ⌈K / 128⌉ over the swept consumers.
 
 Phases 3, 8 and 10 also hold K1, K3 and K2 at Hymba's shapes (G = 5, the
 window of 1024 over 2048 tokens, 50 SSM heads x 64 x state 16), K1 and K2
@@ -140,7 +162,8 @@ phase raises, so the exit code is non-zero and no ``"ok"`` line
 is printed.  TF32 is off for matmuls and cuDNN throughout.
 
 ``--quick`` cuts phases 4, 7, 9, 11, 12 and 13 to 4 layers and a few requests
-or steps (for a first look at a new kernel); ``--profile`` adds a
+or steps, and phase 14 to resnet18-cifar and vgg19-cifar at 10 steps (for a
+first look at a new kernel); ``--profile`` adds a
 ``torch.profiler`` trace of one decode and one prefill step (device busy
 share, K1's time per step, top kernels).  The default is the full run without the trace.
 """
@@ -171,8 +194,10 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core.obspa import (  # noqa: E402
-    layer_output_errors, obspa_prune)
-from repro_torch.core.pruner import prune_model  # noqa: E402
+    DAMPING as OBSPA_DAMPING, _dot_w2d, _flat_columns, find_consumers,
+    hessian_sums, hkey, layer_output_errors, obspa_prune, recalibrate_bn)
+from repro_torch.core.pruner import (  # noqa: E402
+    delete_positions, prune_model, trace_model)
 from repro_torch.data.synthetic import batches  # noqa: E402
 from repro_torch.core.flops import rf_rp  # noqa: E402
 from repro_torch.core.graph import tree_paths  # noqa: E402
@@ -193,6 +218,7 @@ from repro_torch.models.attention import _scatter_kv  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     attention_block as attn_block)
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.models.cnn import stage_widths  # noqa: E402
 from repro_torch.models.layers import rms_norm, swiglu  # noqa: E402
 from repro_torch.models.ssm import ssd_reference, ssm_block  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
@@ -1221,6 +1247,24 @@ def sweep_case(seed, R, K, frac, nb=None, samples=None):
     return W, Hinv, mask
 
 
+# (name, R, K, columns a pruned unit, calibration rows) of phase 14's
+# consumers: resnet50-cifar's last-stage 3x3 conv (512 x 9·512), its first
+# stage's (64 x 9·64) and the classifier (10 classes x 512)
+CNN_SWEEPS = (("cnn conv, last stage", 512, 4608, 9, 16 * 1024),
+              ("cnn conv, first stage", 64, 576, 9, 4 * 576),
+              ("cnn fc", 10, 512, 1, 1024))
+
+
+def channel_mask(seed, K, run, frac):
+    """A prune mask of whole channels: runs of ``run`` columns, each run
+    pruned with probability ``frac`` (on the card, from a seeded
+    generator)."""
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    return (torch.rand(K // run, generator=gen, device=DEV) < frac
+            ).repeat_interleave(run)
+
+
 def sweep_rel_err(out, gold) -> float:
     return float((out.double() - gold.double()).abs().max()
                  / gold.double().abs().max().clamp(min=1e-30))
@@ -1292,6 +1336,18 @@ def phase_k4_checks() -> float:
                                        samples=n))
         worst = max(worst, e)
         torch.cuda.empty_cache()
+    # phase 14's OBSPA shapes: a conv consumer's (C_out, 9·C_in) view with
+    # whole input channels pruned (runs of 9 columns, the 3x3 taps) at 50 %,
+    # its Hessian from the calibration's patch rows (1024 images: 16 a map
+    # in resnet50-cifar's last stage, 1024 in its first), and the
+    # classifier's (classes, 512) view with one row an image
+    for i, (name, R, K, run, n) in enumerate(CNN_SWEEPS):
+        W, Hinv, _ = sweep_case(160 + i, R, K, 0.5, samples=n)
+        _, e = check_sweep(f"{name} R={R} K={K} runs of {run}, half pruned",
+                           W, Hinv, channel_mask(170 + i, K, run, 0.5))
+        worst = max(worst, e)
+        del W, Hinv
+    torch.cuda.empty_cache()
     print("  one column block (the kernel alone; W and E vs float64 and "
           "plain, two calls and the sweep in place bitwise equal):",
           flush=True)
@@ -1452,63 +1508,103 @@ def k4_tiles(R: int = 2048) -> dict:
             "all 128": (w, h, torch.ones(B, dtype=torch.bool, device=DEV))}
 
 
+def time_k4_tile(label: str, w, h, m, iters: int = 50) -> dict:
+    """K4 on one tile (R rows, one 128-column block, f32): the profiler's
+    device time per launch, CUDA events around the kernel, its plain
+    version and the yardstick ``k4_yardstick`` in the order plain, kernel,
+    yardstick, yardstick, kernel, plain, beside the bound from this mask."""
+    R = w.shape[0]
+    o, e = torch.empty_like(w), torch.empty_like(w)
+    kern = (lambda i, w=w, h=h, m=m, o=o, e=e:
+            k4.inblock_sweep_kernel(w, h, m, out=o, e_out=e))
+    plain = lambda i, w=w, h=h, m=m: k4.inblock_sweep_plain(  # noqa: E731
+        w[None], h[None], m)
+    lib = k4_yardstick(w, h, m)
+    kw, ke = kern(0)
+    pw, pe = plain(0)
+    lw, _ = lib(0)
+    torch.cuda.synchronize()
+    max_err = max(float((kw - pw[0]).abs().max()),
+                  float((ke - pe[0]).abs().max()))
+    lib_err = float((lw - pw[0]).abs().max())
+    plain_a = time_ms(plain, iters=5, warmup=1)
+    kern_a = time_ms(kern, iters=iters)
+    lib_a = time_ms(lib, iters=iters)
+    lib_b = time_ms(lib, iters=iters)
+    kern_b = time_ms(kern, iters=iters)
+    plain_b = time_ms(plain, iters=5, warmup=1)
+    device = kernel_device_ms(kern, "inblock_sweep_kernel", iters)
+    lib_prof = device_profile(lib, iters)
+    nbytes, flops = inblock_work(R, m)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_flops = flops / PEAK_FLOPS[torch.float32] * 1e3
+    bound = max(t_bytes, t_flops)
+    t = {"rows": R, "pruned_columns": int(m.sum()), "device_ms": device,
+         "event_ms": (kern_a + kern_b) / 2,
+         "plain_ms": (plain_a + plain_b) / 2, "bound_ms": bound,
+         "bound_by": "bytes" if t_bytes >= t_flops else "operations",
+         "bytes": nbytes, "flops": flops, "max_abs_err": max_err,
+         "yardstick_device_ms": None if lib_prof is None else lib_prof["ms"],
+         "yardstick_event_ms": (lib_a + lib_b) / 2,
+         "yardstick_max_abs_err": lib_err, "plan": k4.plan(R)._asdict()}
+    dev_txt = "not measured" if device is None else (
+        f"{device:.4f} ms, {bound / device:.1%} of the bound")
+    yd = t["yardstick_device_ms"]
+    print(f"  obspa_sweep.inblock {label} (R={R}, 128 columns): device "
+          f"{dev_txt} | events {t['event_ms']:.4f} ms | plain "
+          f"{t['plain_ms']:.4f} ms | library none | bound {bound:.5f} ms "
+          f"({t['bound_by']}; {nbytes / 1e6:.3f} MB, {flops / 1e6:.1f} "
+          f"MFLOP) | max abs err {max_err:.2e} | solve_triangular + "
+          f"addmm: device "
+          f"{'not measured' if yd is None else f'{yd:.4f} ms'}, events "
+          f"{t['yardstick_event_ms']:.4f} ms, max abs err vs plain "
+          f"{lib_err:.2e} | {k4.plan(R).blocks} thread blocks", flush=True)
+    return t
+
+
+def time_k4_sweep(label: str, W, Hinv, mask) -> dict:
+    """The whole sweep of a (R, K) view on the kernel path vs the plain
+    sweep (events, plain, kernel, kernel, plain), with the kernels of one
+    sweep from the profiler (no copy kernel may run once a column
+    block)."""
+    R, K = W.shape
+    sweep = {"shape": [R, K], "pruned_columns": int(mask.sum())}
+    k4_path = lambda i: k4.obspa_sweep(W, Hinv, mask)  # noqa: E731
+    plain_path = lambda i: k4.sweep_plain(W, Hinv, mask)  # noqa: E731
+    pa = time_ms(plain_path, iters=2, warmup=1)
+    ka = time_ms(k4_path, iters=5, warmup=1)
+    kb = time_ms(k4_path, iters=5, warmup=1)
+    pb = time_ms(plain_path, iters=2, warmup=1)
+    prof = device_profile(k4_path, 3)
+    per = {} if prof is None else prof["launches_per_call"]
+    blocks = math.ceil(K / k4.BLOCK)
+    copies = {k: n for k, n in per.items() if "copy" in k.lower()}
+    sweep.update({"k4_path_ms": (ka + kb) / 2, "plain_sweep_ms": (pa + pb) / 2,
+                  "k4_launches_per_sweep": blocks,
+                  "device_ms": None if prof is None else prof["ms"],
+                  "kernels_per_sweep": per})
+    dev_txt = "not measured" if prof is None else f"{prof['ms']:.3f} ms"
+    print(f"  whole sweep {label} R={R} K={K}: K4 path "
+          f"{sweep['k4_path_ms']:.3f} ms (events; device {dev_txt}; {blocks} "
+          f"K4 launches + {blocks - 1} panel GEMMs in place) | plain "
+          f"unblocked sweep {sweep['plain_sweep_ms']:.3f} ms", flush=True)
+    for k, n in sorted(per.items(), key=lambda kv: -kv[1]):
+        print(f"    {n:3d} a sweep: {k[:110]}", flush=True)
+    if any(n >= blocks - 1 for n in copies.values()):
+        raise AssertionError(f"a copy kernel runs once a column block: "
+                             f"{copies}")
+    return sweep
+
+
 def time_k4(iters: int = 50) -> tuple[dict, dict]:
-    """K4 at the three tiles of ``k4_tiles`` (R 2048, one 128-column block,
-    f32): the profiler's device time per launch, CUDA events around the
-    kernel, its plain version and the yardstick ``k4_yardstick`` in the
-    order plain, kernel, yardstick, yardstick, kernel, plain; then the
-    whole sweep of a (2048, 5632) view on the kernel path vs the plain
-    sweep, with the kernels of one sweep from the profiler (no copy kernel
-    may run once a column block)."""
+    """K4 at the three tiles of ``k4_tiles`` (R 2048) and the whole sweep
+    of a (2048, 5632) view (``time_k4_tile``, ``time_k4_sweep``); then the
+    same at phase 14's largest conv consumer, R 512 x K 4608 with whole
+    channels (runs of 9 columns) pruned at 50 %: its first column block
+    and its whole sweep."""
     R, B = 2048, k4.BLOCK
-    tiles = {}
-    for label, (w, h, m) in k4_tiles(R).items():
-        o, e = torch.empty_like(w), torch.empty_like(w)
-        kern = (lambda i, w=w, h=h, m=m, o=o, e=e:
-                k4.inblock_sweep_kernel(w, h, m, out=o, e_out=e))
-        plain = lambda i, w=w, h=h, m=m: k4.inblock_sweep_plain(
-            w[None], h[None], m)
-        lib = k4_yardstick(w, h, m)
-        kw, ke = kern(0)
-        pw, pe = plain(0)
-        lw, _ = lib(0)
-        torch.cuda.synchronize()
-        max_err = max(float((kw - pw[0]).abs().max()),
-                      float((ke - pe[0]).abs().max()))
-        lib_err = float((lw - pw[0]).abs().max())
-        plain_a = time_ms(plain, iters=5, warmup=1)
-        kern_a = time_ms(kern, iters=iters)
-        lib_a = time_ms(lib, iters=iters)
-        lib_b = time_ms(lib, iters=iters)
-        kern_b = time_ms(kern, iters=iters)
-        plain_b = time_ms(plain, iters=5, warmup=1)
-        device = kernel_device_ms(kern, "inblock_sweep_kernel", iters)
-        lib_prof = device_profile(lib, iters)
-        nbytes, flops = inblock_work(R, m)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_flops = flops / PEAK_FLOPS[torch.float32] * 1e3
-        bound = max(t_bytes, t_flops)
-        t = {"pruned_columns": int(m.sum()), "device_ms": device,
-             "event_ms": (kern_a + kern_b) / 2,
-             "plain_ms": (plain_a + plain_b) / 2, "bound_ms": bound,
-             "bound_by": "bytes" if t_bytes >= t_flops else "operations",
-             "bytes": nbytes, "flops": flops, "max_abs_err": max_err,
-             "yardstick_device_ms": None if lib_prof is None
-             else lib_prof["ms"], "yardstick_event_ms": (lib_a + lib_b) / 2,
-             "yardstick_max_abs_err": lib_err}
-        tiles[label] = t
-        dev_txt = "not measured" if device is None else (
-            f"{device:.4f} ms, {bound / device:.1%} of the bound")
-        yd = t["yardstick_device_ms"]
-        print(f"  obspa_sweep.inblock {label} (R={R}, 128 columns): device "
-              f"{dev_txt} | events {t['event_ms']:.4f} ms | plain "
-              f"{t['plain_ms']:.4f} ms | library none | bound {bound:.5f} ms "
-              f"({t['bound_by']}; {nbytes / 1e6:.3f} MB, {flops / 1e6:.1f} "
-              f"MFLOP) | max abs err {max_err:.2e} | solve_triangular + "
-              f"addmm: device "
-              f"{'not measured' if yd is None else f'{yd:.4f} ms'}, events "
-              f"{t['yardstick_event_ms']:.4f} ms, max abs err vs plain "
-              f"{lib_err:.2e}", flush=True)
+    tiles = {label: time_k4_tile(label, w, h, m, iters)
+             for label, (w, h, m) in k4_tiles(R).items()}
     main = tiles[next(iter(tiles))]
     entry = {
         "name": "obspa_sweep.inblock", "route": "cuda", "source": K4_SOURCE,
@@ -1523,33 +1619,18 @@ def time_k4(iters: int = 50) -> tuple[dict, dict]:
                   main["pruned_columns"], "dtype": "float32"},
         "plan": k4.plan(R)._asdict(), "tiles": tiles,
     }
-
     W, Hinv, mask = sweep_case(7, R, 5632, 0.5)
-    sweep = {"shape": [R, 5632], "pruned_columns": int(mask.sum())}
-    k4_path = lambda i: k4.obspa_sweep(W, Hinv, mask)
-    plain_path = lambda i: k4.sweep_plain(W, Hinv, mask)
-    pa = time_ms(plain_path, iters=2, warmup=1)
-    ka = time_ms(k4_path, iters=5, warmup=1)
-    kb = time_ms(k4_path, iters=5, warmup=1)
-    pb = time_ms(plain_path, iters=2, warmup=1)
-    prof = device_profile(k4_path, 3)
-    per = {} if prof is None else prof["launches_per_call"]
-    blocks = 5632 // B
-    copies = {k: n for k, n in per.items() if "copy" in k.lower()}
-    sweep.update({"k4_path_ms": (ka + kb) / 2, "plain_sweep_ms": (pa + pb) / 2,
-                  "k4_launches_per_sweep": blocks,
-                  "device_ms": None if prof is None else prof["ms"],
-                  "kernels_per_sweep": per})
-    dev_txt = "not measured" if prof is None else f"{prof['ms']:.3f} ms"
-    print(f"  whole sweep R=2048 K=5632: K4 path {sweep['k4_path_ms']:.3f} ms"
-          f" (events; device {dev_txt}; {blocks} K4 launches + {blocks - 1} "
-          f"panel GEMMs in place) | plain unblocked sweep "
-          f"{sweep['plain_sweep_ms']:.3f} ms", flush=True)
-    for k, n in sorted(per.items(), key=lambda kv: -kv[1]):
-        print(f"    {n:3d} a sweep: {k[:110]}", flush=True)
-    if any(n >= blocks - 1 for n in copies.values()):
-        raise AssertionError(f"a copy kernel runs once a column block: "
-                             f"{copies}")
+    sweep = time_k4_sweep("main path", W, Hinv, mask)
+    del W, Hinv
+    name, R, K, run, n = CNN_SWEEPS[0]
+    W, Hinv, _ = sweep_case(160, R, K, 0.5, samples=n)
+    mask = channel_mask(170, K, run, 0.5)
+    entry["cnn"] = {
+        "consumer": name,
+        "tile": time_k4_tile(f"{name}, first block", W[:, :B].contiguous(),
+                             Hinv[:B, :B].contiguous(),
+                             mask[:B].contiguous(), iters),
+        "sweep": time_k4_sweep(name, W, Hinv, mask)}
     del W, Hinv
     torch.cuda.empty_cache()
     return entry, sweep
@@ -2672,13 +2753,15 @@ def train(model, batches_, lr: float) -> tuple[dict, dict]:
     res = Trainer(model, oc, TrainerConfig(total_steps=steps, log_every=1)
                   ).train(iter(batches_))
     step_s = [r["step_s"] for r in res.history[1:]]      # the first warms up
-    tokens = batches_[0]["tokens"].numel()
+    first = batches_[0]
+    unit, n = (("tokens", first["tokens"].numel()) if "tokens" in first
+               else ("images", first["images"].shape[0]))
     rec = {"steps": steps, "lr": lr,
            "train_loss_first": res.history[0]["loss"],
            "train_loss_last": res.history[-1]["loss"],
            "step_ms_median": 1e3 * float(np.median(step_s)),
            "first_step_ms": 1e3 * res.history[0]["step_s"],
-           "tokens_per_s": tokens / float(np.median(step_s)),
+           f"{unit}_per_s": n / float(np.median(step_s)),
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "straggler_events": len(res.straggler_events)}
     params = res.params
@@ -3203,7 +3286,8 @@ def obspa_blocks(cfg) -> int:
     return cfg.num_layers * per_layer
 
 
-def obspa_on_card(model, params, calib) -> tuple:
+def obspa_on_card(model, params, calib, calib_mode: str = "datafree"
+                  ) -> tuple:
     """``obspa_prune`` at ratio 0.5 timed (wall, by phase) with its peak
     memory and K4 launches, then every reconstructed consumer's layer-output
     error against plain slicing of the same columns (recorded: at about one
@@ -3213,22 +3297,27 @@ def obspa_on_card(model, params, calib) -> tuple:
     torch.cuda.reset_peak_memory_stats()
     before = k4.launch_count()
     t0 = time.time()
-    pr = obspa_prune(model, params, 0.5, calib, calib_mode="datafree")
+    pr = obspa_prune(model, params, 0.5, calib, calib_mode=calib_mode)
     torch.cuda.synchronize()
+    first = calib[0].get("tokens", calib[0].get("images"))
     rep = {"ratio": 0.5, "criterion": "obspa",
-           "calibration": f"datafree {len(calib)} x "
-                          f"{tuple(calib[0]['tokens'].shape)}, seed 5",
+           "calibration": f"{calib_mode} {len(calib)} x "
+                          f"{tuple(first.shape)}",
            "wall_s": time.time() - t0, "seconds": pr.report["seconds"],
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "k4_launches": k4.launch_count() - before,
            "groups_with_obs": pr.report["groups_with_obs"],
            "groups_total": pr.report["groups_total"]}
     errs = layer_output_errors(model, params, pr, calib)
+    # a consumer whose input is zero on every calibration row has no error
+    # either way (ratio None) and nothing to reconstruct
     rep["layer_errors"] = {k: {"obspa": e_ob, "slicing": e_cut,
-                               "ratio": e_ob / e_cut}
+                               "ratio": e_ob / e_cut if e_cut else None}
                            for k, (e_ob, e_cut) in errs.items()}
-    rep["all_below_slicing"] = all(e_ob < e_cut
+    rep["all_below_slicing"] = all(e_ob < e_cut or e_ob == e_cut == 0
                                    for e_ob, e_cut in errs.values())
+    rep["summed_errors"] = {"obspa": sum(e for e, _ in errs.values()),
+                            "slicing": sum(e for _, e in errs.values())}
     return pr, rep
 
 
@@ -3245,8 +3334,9 @@ def print_prune(label, before: dict, after: dict, rep):
     if "layer_errors" in rep:
         by_kind: dict[str, list] = {}
         for name, e in rep["layer_errors"].items():
-            by_kind.setdefault(name.split("@")[0].split(".", 2)[2],
-                               []).append(e["ratio"])
+            if e["ratio"] is not None:
+                by_kind.setdefault(name.split("@")[0].split(".", 2)[2],
+                                   []).append(e["ratio"])
         print(f"  {label} layer output error ‖X(W-W')‖², OBSPA / plain "
               f"slicing of the same columns: " + ", ".join(
                   f"{k} {min(v):.4f}..{max(v):.4f} ({len(v)})"
@@ -3255,12 +3345,16 @@ def print_prune(label, before: dict, after: dict, rep):
               f"{rep['all_below_slicing']}", flush=True)
 
 
+# phase 12 runs Hymba's first 16 of 32 layers since phase 14 joined the
+# script, to keep it within its time; global layers 0 and 15 stay
+HYMBA_LAYERS = 16
+
+
 def phase_hybrid_path(rng, quick: bool) -> dict:
     print("phase 12: the hybrid family — hymba-1.5b served, L1- and "
           "OBSPA-pruned and served again (K1, K2, K3 and K4)", flush=True)
-    cfg = get_config("hymba-1.5b")
-    if quick:
-        cfg = cfg.replace(num_layers=4)
+    cfg = get_config("hymba-1.5b").replace(
+        num_layers=4 if quick else HYMBA_LAYERS)
     L = cfg.num_layers
     model = build(cfg)
     t0 = time.time()
@@ -3772,11 +3866,340 @@ def phase_moe_path(seed: int, quick: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the cnn family (resnet50-cifar, vgg19-cifar) trained, pruned at
+# the paper's three times, and OBSPA-pruned with BatchNorm recalibration
+# (K4 on every conv consumer's (C_out, 9·C_in) view)
+# ---------------------------------------------------------------------------
+
+# 100 training steps of 128 images, SNIP on one more batch, L1's
+# fine-tuning 50 steps; OBSPA calibrates on 16 x 64 images a regime (16384
+# rows at the last stage's 4 x 4 maps for K 4608, 1024 for the classifier's
+# K 512); accuracy on 8 x 256 "eval" images
+CNN = dict(batch=128, steps=100, ft_steps=50, calib=(16, 64), evals=(8, 256))
+# AdamW's peak lr: the reference benchmarks' 3e-3 for the ResNets; VGG-19,
+# whose loss runs BatchNorm as a fixed affine map (eval mode), kills most
+# of its ReLUs at 3e-3 and 1e-3 and learns nothing in 100 steps at 3e-4;
+# 1e-4 is the largest of the four tried on the card that learns (phase 14
+# trains it at the reference's lr too and reports its dead channels)
+CNN_REFERENCE_LR = 3e-3
+CNN_LR = {"resnet": CNN_REFERENCE_LR, "vgg": 1e-4}
+# the float32 forward on the card (cuDNN, TF32 off) against the same forward
+# in float64, relative to the largest logit
+CNN_F64_TOL = 1e-4
+
+
+def cnn_accuracy(model, params, evalb) -> float:
+    """Top-1 accuracy over ``evalb``; every logit must be finite."""
+    hits = total = 0
+    with torch.no_grad():
+        for b in evalb:
+            logits = model.forward(params, b)
+            if logits.shape != (b["labels"].shape[0], model.cfg.num_classes) \
+                    or not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{model.cfg.name}: logits "
+                                     f"{tuple(logits.shape)}, not finite or "
+                                     f"not (batch, classes)")
+            hits += int((logits.argmax(-1) == b["labels"].long()).sum())
+            total += b["labels"].shape[0]
+    return hits / total
+
+
+def cnn_f64_gap(model, params, images) -> float:
+    """max |logits (f32 on the card) − logits (float64 on the card)| over
+    max |logits float64|: the float32 convolutions against a float64
+    reference of the same model and weights."""
+    p64 = tf._tree_map(lambda t: t.double(), params)
+    with torch.no_grad():
+        got = model.forward(params, {"images": images}).double()
+        ref = model.forward(p64, {"images": images.double()})
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def vgg_dead_share(cfg, params, images) -> list[float]:
+    """Per conv of a VGG, the share of its channels that no image of
+    ``images`` activates (zero after the ReLU everywhere)."""
+    from repro_torch.models import cnn
+    p, st, h, out = params["params"], params["state"], images, []
+    with torch.no_grad():
+        for si, (_, convs) in enumerate(cfg.cnn_stages):
+            for ci in range(convs):
+                name = f"s{si}c{ci}"
+                h = cnn._conv(h, p[name]["conv"])
+                h = torch.relu(cnn._bn(h, p[name]["bn"], st[name], False)[0])
+                out.append(float((h.amax(dim=(0, 1, 2)) <= 0).float().mean()))
+            h = cnn._max_pool(h)
+    return out
+
+
+def obspa_f64_check(model, dense, pr, calib, names) -> dict:
+    """For the consumers ``names``: the reference's sweep (Eq. 13/14, the
+    rows of one Hinv) done again in float64 by the plain version on the
+    damped Hessian of the same calibration rows, its layer-output error
+    over plain slicing's (the consumer's own pruned output rows cut in
+    both), and how many of its pruned input columns are zero on every
+    calibration row (dead ReLU channels)."""
+    g, ap = trace_model(model, dense, batch=calib[0])
+    cons = find_consumers(g, pr.groups)
+    H, count = hessian_sums(g, ap, calib, cons)
+    dele = delete_positions(pr.groups, pr.pruned_units)
+    leaves = dict(tree_paths(ap))
+    out = {}
+    for (path, _), cs in cons.items():
+        for c in cs:
+            name = f"{path}@{c.op.uid}"
+            if name not in names or name in out:
+                continue
+            h = H[hkey(c)][0].double()
+            K = h.shape[0]
+            hm = h / count[hkey(c)]
+            lam = OBSPA_DAMPING * max(float(hm.diagonal().sum()) / K, 1e-8)
+            hinv = torch.linalg.inv(hm + lam * torch.eye(
+                K, dtype=h.dtype, device=h.device))
+            w = leaves[path]
+            w2d = _dot_w2d(w.double(), c)[0][0]
+            mask = torch.zeros(K, dtype=torch.bool, device=h.device)
+            rows = torch.ones(w2d.shape[0], dtype=torch.bool, device=h.device)
+            for (p, a), pos in dele.items():
+                if p == path and a in c.param_contract:
+                    mask[torch.as_tensor(_flat_columns(
+                        tuple(w.shape), c, a, tuple(sorted(pos))),
+                        device=h.device)] = True
+                elif p == path:
+                    rows[sorted(pos)] = False
+            new = k4.sweep_plain(w2d, hinv, mask) * rows[:, None]
+            cut = w2d * (~mask)[None, :] * rows[:, None]
+            e_ob, e_cut = (float(((w2d - v) @ h * (w2d - v)).sum())
+                           for v in (new, cut))
+            diag = h.diagonal()
+            out[name] = {"f64_ratio": e_ob / e_cut if e_cut else None,
+                         "pruned_columns": int(mask.sum()),
+                         "dead_pruned_columns": int((diag[mask] == 0).sum())}
+    return out
+
+
+def cnn_swept_blocks(dense, pruned) -> int:
+    """K4 launches of an OBSPA prune of a CNN: one per 128-column block of
+    every consumer whose input channels lost a unit — a conv's K =
+    kh·kw·C_in, the classifier's K = C_in, at the dense widths (the sweep
+    runs before the slice)."""
+    after = dict(tree_paths(pruned["params"]))
+    n = 0
+    for path, w in tree_paths(dense["params"]):
+        if w.ndim == 4 and after[path].shape[2] < w.shape[2]:
+            n += math.ceil(w[..., 0].numel() / k4.BLOCK)
+        elif path == "fc" and after[path].shape[0] < w.shape[0]:
+            n += math.ceil(w.shape[0] / k4.BLOCK)
+    return n
+
+
+def cnn_model_path(name: str, c: dict, rng, three_times: bool
+                   ) -> tuple[dict, int]:
+    """One CNN at full width: trained from a seed; with ``three_times``,
+    SNIP at init then trained, L1 after training then fine-tuned, OBSPA
+    with ID, OOD and DataFree calibration; otherwise L1 and OBSPA ID after
+    training.  Returns (record, the K4 launches its OBSPA prunes owe)."""
+    cfg = get_config(name)
+    model = build(cfg)
+    lr = CNN_LR[cfg.cnn_kind]
+    seeds = [int(x) for x in rng.integers(0, 2**31, 5)]
+    init = model.init(seed=seeds[0])
+    n_p = n_params(init["params"])
+    t0 = time.time()
+    data = batches(cfg, "id", c["steps"] + 1, c["batch"], 0, seed=seeds[1])
+    train_b, grad_b = data[:-1], data[-1]
+    evalb = batches(cfg, "eval", *c["evals"], 0, seed=seeds[2])
+    out = {"model": name, "params": n_p, "stages": list(cfg.cnn_stages),
+           "classes": cfg.num_classes, "lr": lr, "data_s": time.time() - t0}
+    print(f"  model: {name} {cfg.cnn_kind}, stages {list(cfg.cnn_stages)}, "
+          f"{cfg.num_classes} classes, {cfg.image_size} px, float32; {n_p} "
+          f"parameters (+ {n_params(init['state'])} BN statistics); data "
+          f"{out['data_s']:.1f}s", flush=True)
+    want_k4 = 0
+
+    def report(label, m, p, pr=None, rep=None, dense_p=None) -> dict:
+        r = {"accuracy": cnn_accuracy(m, p, evalb)}
+        txt = f"accuracy {r['accuracy']:.4f}"
+        if pr is not None:
+            rr = rf_rp(model, dense_p, m, p, evalb[0])
+            r.update(rf=rr["RF"], rp=rr["RP"], params_after=rr["params_after"],
+                     kept=stage_widths(cfg, p["params"]), **rep)
+            txt += (f" | RF {rr['RF']:.3f} RP {rr['RP']:.3f} | "
+                    f"{rep['wall_s']:.2f}s: " + " | ".join(
+                        f"{k} {v:.3f}s" for k, v in rep["seconds"].items())
+                    + f" | peak {rep['peak_mem_bytes'] / 2**30:.2f} GiB")
+            if "k4_launches" in rep:
+                txt += (f" | K4 launches {rep['k4_launches']} (formula "
+                        f"{rep['k4_expected']})")
+            txt += f" | kept a stage {r['kept']}"
+            if rr["RF"] <= 1.15 or rr["RP"] <= 1.15:
+                raise AssertionError(f"{name} {label}: RF {rr['RF']}, RP "
+                                     f"{rr['RP']} (<= 1.15)")
+        print(f"  {label:32s} {txt}", flush=True)
+        return r
+
+    def l1_or_snip(criterion, p, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        pr = prune_model(model, p, 0.5, criterion=criterion, **kw)
+        torch.cuda.synchronize()
+        return pr, {"criterion": criterion, "mode": pr.report["mode"],
+                    "wall_s": time.time() - t0,
+                    "seconds": pr.report["seconds"],
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+    out["dense_init"] = report("dense at init", model, init)
+    if three_times:
+        # prune-train: SPA-SNIP at init on one gradient batch, then train
+        pr, rep = l1_or_snip("snip", init, grads_batch=grad_b)
+        r = {"after_prune": report("prune-train: SNIP at init", build(pr.cfg),
+                                   pr.params, pr, rep, init)}
+        p_pt, r["train"] = train(Warm(pr.cfg, pr.params), train_b, lr)
+        r["after_train"] = report("prune-train: trained", build(pr.cfg), p_pt)
+        out["prune_train"] = r
+        del pr, p_pt
+    if lr != CNN_REFERENCE_LR:
+        p_ref, tr = train(Warm(cfg, tf._tree_map(torch.clone, init)),
+                          train_b, CNN_REFERENCE_LR)
+        out["reference_lr"] = {
+            "train": tr, "accuracy": cnn_accuracy(model, p_ref, evalb),
+            "dead_share": vgg_dead_share(cfg, p_ref, evalb[0]["images"])}
+        r = out["reference_lr"]
+        print(f"  trained at the reference lr {CNN_REFERENCE_LR:g}: "
+              f"accuracy {r['accuracy']:.4f}, train loss "
+              f"{tr['train_loss_first']:.4f} -> {tr['train_loss_last']:.4f}"
+              f", channels no eval image activates, a conv: "
+              f"{[round(x, 3) for x in r['dead_share']]}", flush=True)
+        del p_ref
+    dense, out["dense_train"] = train(Warm(cfg, init), train_b, lr)
+    out["dense_trained"] = report("dense trained", model, dense)
+    d = out["dense_train"]
+    out["f64_gap"] = cnn_f64_gap(model, dense, evalb[0]["images"][:32])
+    print(f"  dense training: {d['steps']} steps of {c['batch']} images at "
+          f"lr {lr:g}, "
+          f"median step {d['step_ms_median']:.1f} ms "
+          f"({d['images_per_s']:.0f} images/s; first step "
+          f"{d['first_step_ms']:.0f} ms), train loss "
+          f"{d['train_loss_first']:.4f} -> {d['train_loss_last']:.4f}, peak "
+          f"{d['peak_mem_bytes'] / 2**30:.2f} GiB | trained forward vs "
+          f"float64 {out['f64_gap']:.2e} of max|logit| (limit "
+          f"{CNN_F64_TOL:g})", flush=True)
+    if not d["train_loss_last"] < d["train_loss_first"]:
+        raise AssertionError(f"{name}: training did not lower the loss: {d}")
+    if out["f64_gap"] > CNN_F64_TOL:
+        raise AssertionError(f"{name}: float32 forward {out['f64_gap']} "
+                             f"from float64")
+
+    # train-prune-finetune: SPA-L1 (global) after training, then fine-tune
+    pr, rep = l1_or_snip("l1", dense)
+    r = {"after_prune": report("train-prune: L1", build(pr.cfg), pr.params,
+                               pr, rep, dense)}
+    if three_times:
+        p_ft, r["finetune"] = train(Warm(pr.cfg, pr.params),
+                                    train_b[:c["ft_steps"]], lr)
+        r["after_finetune"] = report("train-prune-finetune: tuned",
+                                     build(pr.cfg), p_ft)
+        del p_ft
+    out["train_prune_l1"] = r
+    del pr
+
+    # train-prune: OBSPA after training, no tuning; BN recalibrated on the
+    # calibration images except with DataFree calibration.  The dense model
+    # recalibrated alone shows what the refresh does without the prune: the
+    # loss ran BN in eval mode, so training fitted the running statistics
+    # as parameters (ROADMAP Queue 3)
+    for mode in ("id", "ood", "datafree") if three_times else ("id",):
+        calib = batches(cfg, mode, *c["calib"], 0, seed=seeds[3])
+        if mode == "id":
+            out["dense_recalibrated"] = report(
+                "dense, BN recalibrated (id)", model,
+                recalibrate_bn(cfg, dense, calib))
+        pr, rep = obspa_on_card(model, dense, calib, calib_mode=mode)
+        rep["k4_expected"] = cnn_swept_blocks(dense, pr.params)
+        want_k4 += rep["k4_expected"]
+        r = report(f"train-prune: OBSPA ({mode})", build(pr.cfg), pr.params,
+                   pr, rep, dense)
+        r["f64_gap"] = cnn_f64_gap(build(pr.cfg), pr.params,
+                                   evalb[0]["images"][:32])
+        ratios = [e["ratio"] for e in rep["layer_errors"].values()
+                  if e["ratio"] is not None]
+        tot = rep["summed_errors"]
+        r["consumers_not_below"] = sum(x >= 1 for x in ratios)
+        if mode != "datafree":
+            r["not_below_f64"] = obspa_f64_check(
+                model, dense, pr, calib,
+                {k for k, e in rep["layer_errors"].items()
+                 if e["ratio"] is not None and e["ratio"] >= 1})
+            for k, v in r["not_below_f64"].items():
+                print(f"    not below slicing: {k} ratio "
+                      f"{rep['layer_errors'][k]['ratio']:.6f}, float64 "
+                      f"plain sweep {v['f64_ratio']:.6f}; "
+                      f"{v['dead_pruned_columns']} of its "
+                      f"{v['pruned_columns']} pruned columns zero on every "
+                      f"calibration row", flush=True)
+        print(f"  OBSPA ({mode}) layer output error ‖X(W-W')‖², OBSPA / "
+              f"plain slicing, {len(rep['layer_errors'])} conv and fc "
+              f"consumers: {min(ratios):.4f}..{max(ratios):.4f}, "
+              f"{r['consumers_not_below']} not below; summed "
+              f"{tot['obspa']:.6g} / {tot['slicing']:.6g} = "
+              f"{tot['obspa'] / tot['slicing']:.6f} | forward vs float64 "
+              f"{r['f64_gap']:.2e}", flush=True)
+        if rep["k4_launches"] != rep["k4_expected"]:
+            raise AssertionError(f"{name} OBSPA ({mode}): K4 launches "
+                                 f"{rep['k4_launches']} != "
+                                 f"{rep['k4_expected']}")
+        # the reference's sweep (Eq. 13/14 with the rows of one fixed
+        # Hinv) is no OBS update after the first pruned column, and a
+        # consumer whose pruned inputs are mostly dead ReLU channels can
+        # come out at or above slicing (a float64 sweep agrees): what the
+        # reconstruction must do is lower the error summed over the model
+        if three_times and mode != "datafree" and \
+                not tot["obspa"] < tot["slicing"]:
+            raise AssertionError(f"{name} OBSPA ({mode}): summed layer "
+                                 f"output error {tot} not below slicing's")
+        if r["f64_gap"] > CNN_F64_TOL:
+            raise AssertionError(f"{name} OBSPA ({mode}): float32 forward "
+                                 f"{r['f64_gap']} from float64")
+        out[f"train_prune_obspa_{mode}"] = r
+        del pr, calib
+    del dense, init, data, train_b
+    torch.cuda.empty_cache()
+    return out, want_k4
+
+
+def phase_cnn_path(seed: int, quick: bool) -> dict:
+    print("phase 14: the cnn family — resnet50-cifar and vgg19-cifar "
+          "trained, pruned at the paper's three times, OBSPA with BatchNorm "
+          "recalibration (K4 on conv consumers)", flush=True)
+    c = dict(CNN, steps=10, ft_steps=5) if quick else dict(CNN)
+    rng = np.random.default_rng([seed, 14, 1])
+    t0 = time.time()
+    k4.reset_launches()                 # counts = this path's only
+    res: dict = {"config": c, "models": {}}
+    want = 0
+    for name, three in (("resnet18-cifar" if quick else "resnet50-cifar",
+                         True), ("vgg19-cifar", False)):
+        res["models"][name], w = cnn_model_path(name, c, rng, three)
+        want += w
+    torch.cuda.synchronize()
+    res["k4_launches"] = k4.launch_count()
+    res["k4_launches_expected"] = want
+    res["wall_s"] = time.time() - t0
+    print(f"  cnn path {res['wall_s']:.2f}s wall; K4 launches "
+          f"{res['k4_launches']} (expected {want})", flush=True)
+    if res["k4_launches"] != want or want < 1:
+        raise AssertionError(f"cnn path K4 launches {res['k4_launches']} "
+                             f"!= {want}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="cut phases 4, 7, 9, 11, 12 and 13 to 4 layers and "
-                         "a few requests or steps")
+                         "a few requests or steps, and phase 14 to "
+                         "resnet18-cifar and vgg19-cifar at 10 steps")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode and one prefill step with "
                          "torch.profiler: device busy share, top kernels")
@@ -3933,6 +4356,10 @@ def main() -> int:
     kernels[1]["launches_moe"] = ml["k1_prefill"]
     k2_entry["launches_moe"] = ml["k2"]
     k4_entry["launches_moe"] = ml["k4"]
+    # phase 14 draws its data from a generator of its own
+    cnn_res = phase_cnn_path(args.seed, args.quick)
+    lap("phase 14")
+    k4_entry["launches_cnn"] = cnn_res["k4_launches"]
     for entry, timed in ((kernels[0], k1_moe[0]), (kernels[1], k1_moe[1]),
                          (k2_entry, k2_moe)):
         entry["qwen2_moe"] = {
@@ -3959,6 +4386,7 @@ def main() -> int:
     print(json.dumps({"any_time_path": any_res}))
     print(json.dumps({"hybrid_path": hybrid_res}))
     print(json.dumps({"moe_path": moe_res}))
+    print(json.dumps({"cnn_path": cnn_res}))
     print(json.dumps({"phase_seconds": phase_s}))
     print(f"total {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -15,3 +15,4 @@ from repro_torch.configs import paligemma_3b    # noqa: F401
 from repro_torch.configs import hymba_1_5b      # noqa: F401
 from repro_torch.configs import mamba2_1_3b     # noqa: F401
 from repro_torch.configs import hubert_xlarge   # noqa: F401
+from repro_torch.configs import paper_models    # noqa: F401

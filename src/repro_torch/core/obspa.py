@@ -22,15 +22,24 @@ from the rows dispatched to it, capacity padding included, as the
 reference counts them; all experts sweep in one K4 launch, on its grid's
 y) and the shared experts' ``moe.shared.w_down``.  Whole experts (router
 column + expert weights, merged by ``MOE_HINTS``) have no consumer: an
-expert is a batch axis, not a contraction, so magnitude scores them.  The SSM state group has none (``B`` meets ``C`` inside the
-scan, a product of two activations), so magnitude scores it.
+expert is a batch axis, not a contraction, so magnitude scores them.  The
+SSM state group has none (``B`` meets ``C`` inside the scan, a product of
+two activations), so magnitude scores it.  For the cnn family every
+``conv2d`` that reads a pruned group on its input channels (groups 1) is a
+consumer, as in the reference: its HWIO weight viewed ``(1, C_out, C_in ·
+kh · kw)`` and its input unfolded (``F.unfold``, the consumer's own
+stride and padding) into rows of the same column order, one Hessian a
+(feature map, convolution) pair, so that a 3x3 convolution and a 1x1
+projection reading one map keep theirs apart; the classifier ``fc`` is a
+product consumer.  After the sweep, the BatchNorm running statistics are
+re-estimated from the calibration batches (paper App. B.3;
+``recalibrate_bn``), except with DataFree calibration.
 
 Everything runs on the device the parameters live on: activations are
 captured there, ``H`` accumulates there in f32 and is inverted there in
 float64 (the reference does both on the host in numpy, outside any Pallas
 kernel).  Scoring and sweeps run in f32; weights are cast back to their
-dtype.  The conv branch and the BatchNorm re-estimation of the reference wait
-for the CNN slice (ROADMAP.md Queue 1 item 14).
+dtype.
 """
 from __future__ import annotations
 
@@ -38,18 +47,21 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.graph import (CompGraph, OpNode, tree_map_paths,
                                     tree_paths)
 from repro_torch.core.groups import Group
 from repro_torch.core.importance import leaf_scores, unit_scores
 from repro_torch.core.pruner import (PhaseClock, PruneResult,
-                                     apply_pruning, delete_positions,
-                                     group_graph, infer_config, prunable,
-                                     restack, select_units, trace_model)
+                                     apply_pruning, default_mode,
+                                     delete_positions, group_graph,
+                                     infer_config, leaf_shapes, prunable,
+                                     restack, select_units, to_analysis,
+                                     trace_model)
 from repro_torch.kernels.obspa_update import obspa_sweep, obspa_sweep_batched
 from repro_torch.kernels.obspa_update.ops import full_f32_matmul
-from repro_torch.models import transformer as tf
+from repro_torch.models.cnn import cnn_forward
 
 DAMPING = 0.01      # λ of H + λ·mean(diag H)·I, the reference's default
 _PRODUCTS = ("einsum", "matmul", "mm", "bmm")
@@ -69,6 +81,7 @@ class Consumer:
     param_batch: tuple[int, ...]
     x_contract: tuple[int, ...]   # aligned pairwise with param_contract
     x_batch: tuple[int, ...]      # aligned pairwise with param_batch
+    kind: str = "dot"             # "dot" | "conv" (x unfolded into patches)
 
 
 def _real_consumers(node):
@@ -85,9 +98,38 @@ def _real_consumers(node):
     return out
 
 
+def _conv_consumers(perm_op: OpNode, path: str, axis: int) -> list[Consumer]:
+    """The ``conv2d`` ops that take ``permute(param)`` as their weight (a
+    CNN's HWIO leaf viewed OIHW) with ``axis`` on their input channels and
+    groups 1.  The contracted axes are the leaf's (C_in, kh, kw), in the
+    order of ``F.unfold``'s columns; the output channel is the free one."""
+    perm = [d % 4 for d in perm_op.params["args"][1]]
+    found = []
+    for op, used in _real_consumers(perm_op.outvars[0]):
+        if op.prim != "conv2d" or op.invars[1] is not used \
+                or _conv_geometry(op)["groups"] != 1 or perm[1] != axis:
+            continue
+        xv = op.invars[0]
+        if not (xv.is_param or xv.is_const):
+            found.append(Consumer(path, op, xv.uid, tuple(perm[1:]), (),
+                                  (), (), kind="conv"))
+    return found
+
+
+def _conv_geometry(op: OpNode) -> dict:
+    """stride, padding, dilation and groups of a traced ``conv2d``
+    (arguments 3-6, where the trace kept them)."""
+    args, kw = op.params["args"], op.params["kwargs"]
+    return {name: args[i] if len(args) > i else kw.get(name, default)
+            for i, (name, default) in enumerate(
+                (("stride", 1), ("padding", 0), ("dilation", 1),
+                 ("groups", 1)), start=3)}
+
+
 def find_consumers(g: CompGraph, groups: list[Group]
                    ) -> dict[tuple[str, int], list[Consumer]]:
-    """(param_path, axis) -> product consumers contracting that axis."""
+    """(param_path, axis) -> product and convolution consumers contracting
+    that axis."""
     out: dict[tuple[str, int], list[Consumer]] = {}
     for gr in groups:
         for sl in gr.units[0].slices:
@@ -96,6 +138,9 @@ def find_consumers(g: CompGraph, groups: list[Group]
                 continue
             found = []
             for op, used in _real_consumers(g.params[sl.path]):
+                if op.prim == "permute" and len(used.shape) == 4:
+                    found += _conv_consumers(op, sl.path, sl.axis)
+                    continue
                 if op.prim not in _PRODUCTS or len(op.invars) != 2:
                     continue
                 ins, out_spec = op.params["spec"]
@@ -124,7 +169,9 @@ def find_consumers(g: CompGraph, groups: list[Group]
 # ---------------------------------------------------------------------------
 
 def _dot_w2d(w: torch.Tensor, c: Consumer) -> tuple[torch.Tensor, tuple]:
-    """-> (B, R, K) with contract dims flattened last; returns inverse info."""
+    """-> (B, R, K) with contract dims flattened last; returns inverse info.
+    A conv consumer's HWIO weight comes out ``(1, C_out, C_in·kh·kw)``, the
+    reference's ``_conv_w2d``."""
     nd = w.ndim
     free = [d for d in range(nd) if d not in c.param_contract
             and d not in c.param_batch]
@@ -154,7 +201,15 @@ def _flat_columns(w_shape: tuple, c: Consumer, axis: int,
 
 
 def _x2d(x: torch.Tensor, c: Consumer) -> torch.Tensor:
-    """Activation -> (B, N, K) aligned with _dot_w2d columns."""
+    """Activation -> (B, N, K) aligned with _dot_w2d columns.  A conv
+    consumer's NCHW input becomes its patches (N·positions, C_in·kh·kw),
+    unfolded at the consumer's own stride, padding and dilation."""
+    if c.kind == "conv":
+        geo = _conv_geometry(c.op)
+        cols = F.unfold(x, tuple(c.op.invars[1].shape[2:]),
+                        dilation=geo["dilation"], padding=geo["padding"],
+                        stride=geo["stride"])
+        return cols.transpose(1, 2).reshape(1, -1, cols.shape[1])
     nd = x.ndim
     free = [d for d in range(nd) if d not in c.x_contract
             and d not in c.x_batch]
@@ -170,7 +225,8 @@ def _x2d(x: torch.Tensor, c: Consumer) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def hkey(c: Consumer) -> tuple[int, int]:
-    """Hessian key: activation node x consumer op."""
+    """Hessian key: activation node x consumer op (two ops may read one
+    map through other windows — a 3x3 conv and a 1x1 projection)."""
     return (c.x_uid, c.op.uid)
 
 
@@ -304,27 +360,32 @@ def reconstruct(ap, groups: list[Group], pruned: dict[str, list[int]],
 # Top level
 # ---------------------------------------------------------------------------
 
-OBSPA_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+OBSPA_FAMILIES = ("dense", "moe", "ssm", "hybrid", "cnn")
 
 
 def require_obspa_family(cfg) -> None:
-    """OBSPA is ported for the dense, moe, ssm and hybrid families; the
-    others (and their conv consumers) wait for their ROADMAP.md item."""
+    """OBSPA is ported for the dense, moe, ssm, hybrid and cnn families;
+    the others wait for their ROADMAP.md item."""
     if cfg.family not in OBSPA_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: OBSPA for the {cfg.family!r} family is not ported "
-            f"yet — ROADMAP.md Queue 1 item 14 (CNN, audio, VLM)")
+            f"yet — ROADMAP.md Queue 1 item 14 (audio, VLM)")
 
 
 def obspa_prune(model, params, ratio: float, calib_batches: list,
-                calib_mode: str = "id") -> PruneResult:
-    """OBSPA pruning of a model on the device its parameters live on,
-    per group with the reference's defaults (damping ``DAMPING``, scores
-    normalised by their mean, no unit alignment).  ``report["seconds"]``
-    holds the time of each phase (trace, group, hessians, inverse, score,
-    sweep, slice)."""
+                calib_mode: str = "id", mode: str | None = None,
+                recalibrate: bool = True) -> PruneResult:
+    """OBSPA pruning of a model on the device its parameters live on, with
+    the reference's defaults (damping ``DAMPING``, scores normalised by
+    their mean, no unit alignment; ``mode`` None is ``default_mode(cfg)``:
+    global for a CNN, per group otherwise).  A CNN's BatchNorm statistics
+    are then re-estimated from ``calib_batches`` (``recalibrate_bn``)
+    unless ``calib_mode`` is ``datafree`` or ``recalibrate`` is False.
+    ``report["seconds"]`` holds the time of each phase (trace, group,
+    hessians, inverse, score, sweep, slice, and recalibrate for a CNN)."""
     cfg = model.cfg
     require_obspa_family(cfg)
+    mode = mode or default_mode(cfg)
     clock = PhaseClock(tree_paths(params)[0][1].device)
     # trace at the calibration batch's shapes: the graph interpreter replays
     # the trace on the calibration data, and the trace is shape-specialized
@@ -338,7 +399,8 @@ def obspa_prune(model, params, ratio: float, calib_batches: list,
     Hinv = invert_hessians(H, count)
     clock.lap("inverse")
     scores, has_obs = obs_unit_scores(targets, consumers, ap, Hinv)
-    pruned = select_units(targets, scores, ratio)
+    pruned = select_units(targets, scores, ratio, mode=mode,
+                          shapes=leaf_shapes(ap))
     clock.lap("score")
     ap = reconstruct(ap, targets, pruned, consumers, Hinv)
     del Hinv
@@ -348,9 +410,12 @@ def obspa_prune(model, params, ratio: float, calib_batches: list,
     new_cfg = infer_config(cfg, new_ap)
     new_params = restack(new_cfg, new_ap)
     clock.lap("slice")
+    if recalibrate and cfg.family == "cnn" and calib_mode != "datafree":
+        new_params = recalibrate_bn(new_cfg, new_params, calib_batches)
+        clock.lap("recalibrate")
 
     report = {
-        "criterion": "obspa", "ratio": ratio, "mode": "per_group",
+        "criterion": "obspa", "ratio": ratio, "mode": mode,
         "calib_mode": calib_mode,
         "groups_with_obs": sum(has_obs.values()),
         "groups_total": len(targets),
@@ -358,6 +423,18 @@ def obspa_prune(model, params, ratio: float, calib_batches: list,
         "seconds": clock.seconds,
     }
     return PruneResult(new_params, new_cfg, report, targets, pruned)
+
+
+@torch.no_grad()
+def recalibrate_bn(cfg, params, calib_batches: list, passes: int = 2):
+    """Paper App. B.3: forward the calibration images through train-mode
+    BatchNorm ``passes`` times and keep the running statistics it leaves."""
+    state = params["state"]
+    for _ in range(passes):
+        for b in calib_batches:
+            _, state = cnn_forward(cfg, params["params"], state,
+                                   b["images"], train=True)
+    return {"params": params["params"], "state": state}
 
 
 # ---------------------------------------------------------------------------
@@ -396,8 +473,7 @@ def layer_output_errors(model, params, result: PruneResult,
     H, count = hessian_sums(graph, ap, calib_batches, consumers)
     dele = delete_positions(result.groups, result.pruned_units)
     dense = dict(tree_paths(ap))
-    pruned = dict(tree_paths(tf.unstack_layers(result.params,
-                                               result.cfg.num_layers)))
+    pruned = dict(tree_paths(to_analysis(result.cfg, result.params)))
     out: dict[str, tuple[float, float]] = {}
     with full_f32_matmul():
         for (path, _), cs in consumers.items():

@@ -19,9 +19,11 @@ low padding of its axis, ``cumsum`` keeps them (the reference's scan rule),
 and ``conv1d`` couples channels as ``conv_general_dilated`` does, in
 PyTorch's layout (input ``(N, C_in, T)``, weight ``(C_out, C_in/groups,
 K)``, output ``(N, C_out, T)``; the depthwise conv of the SSM block has
-``groups = C_in``).  For the MoE dispatch: ``sort`` / ``argsort`` /
-``topk`` follow the reference's sort and top_k rules, ``index_put`` its
-scatter rule and ``stack`` the concatenate rule with a new axis.
+``groups = C_in``).  ``conv2d`` (the CNNs) takes the same rule with two
+spatial axes, and ``max_pool2d`` the reference's ``reduce_window_max``
+rule.  For the MoE dispatch: ``sort`` / ``argsort`` / ``topk`` follow the
+reference's sort and top_k rules, ``index_put`` its scatter rule and
+``stack`` the concatenate rule with a new axis.
 """
 from __future__ import annotations
 
@@ -357,15 +359,15 @@ def _cumulative(op, role, idx, axis, pos):
     return [(y if role == "in" else x, axis, pos)]
 
 
-@rule("conv1d")
+@rule("conv1d", "conv2d")
 def _conv(op, role, idx, axis, pos):
     """``conv_general_dilated``'s rule in PyTorch's layout: batch axes
     couple input and output; with ``groups == 1`` input channels couple the
     weight's input axis and output channels the weight's output axis; with
-    ``groups > 1`` a channel carries its whole group along.  The time axis
-    mixes positions and couples nothing."""
+    ``groups > 1`` a channel carries its whole group along.  The spatial
+    (time) axes mix positions and couple nothing."""
     if len(op.invars) > 2:
-        raise GraphError("conv1d with a bias is not supported")
+        raise GraphError(f"{op.prim} with a bias is not supported")
     fgc = _arg(op, 6, "groups", 1)
     lhs, rhs, y = op.invars[0], op.invars[1], op.outvars[0]
     icg, ocg = lhs.shape[1] // fgc, rhs.shape[0] // fgc
@@ -398,6 +400,16 @@ def _conv(op, role, idx, axis, pos):
     if axis == 0:
         return [(lhs, 0, pos)]
     return from_out(pos) if axis == 1 else []
+
+
+@rule("max_pool2d", "max_pool2d_with_indices")
+def _pool(op, role, idx, axis, pos):
+    """The reference's ``reduce_window_max`` rule in PyTorch's layout: the
+    pooled (last two) axes mix positions; the batch and channel axes map
+    onto every other operand."""
+    if axis >= len(op.invars[0].shape) - 2:
+        return []
+    return [(node, axis, pos) for node, _, _ in _others(op, role, idx)]
 
 
 # ---------------------------------------------------------------------------

@@ -4,16 +4,22 @@ The output of ``prune_model`` is a *new* (params, config) pair with smaller
 dims — structured pruning as a real shape change (paper Step 4): the pruned
 model runs smaller products and a smaller KV cache through the same kernels.
 
-Selection is per group: the lowest-scoring fraction of every prunable group
-goes (layers stay uniform, which the stacked layer layout needs).  The
-reference's ``global`` mode serves the CNN family and waits for its slice.
+Two selection modes, as in the reference:
+  per_group — prune the lowest-scoring fraction within every prunable group
+              (keeps layers uniform, which the stacked layer layout needs)
+  global    — the paper's globally-normalized ranking (Eq. 1's Norm makes
+              groups comparable): units go in order of score until their
+              parameters reach ``ratio`` of the prunable total; the default
+              for the cnn family, whose layers need not stay uniform
 ``align_units`` keeps its reference meaning and default (1: no rounding).
 
-The dense, moe, ssm and hybrid families are ported; the CNN branch raises
-``NotImplementedError`` naming its ROADMAP.md item.  For the moe family the
-groups found by propagation are merged by the reference's ``MOE_HINTS``:
-router column ``e`` and expert ``e``'s weights are coupled through the
-top-k indices, which no shape rule can see.
+The dense, moe, ssm, hybrid and cnn families are ported.  A CNN's
+``{"params", "state"}`` tree is traced as it is (no layer stack), so the
+BatchNorm running statistics are parameters of the trace and are sliced
+with their channels.  For the moe family the groups found by propagation
+are merged by the reference's ``MOE_HINTS``: router column ``e`` and expert
+``e``'s weights are coupled through the top-k indices, which no shape rule
+can see.
 """
 from __future__ import annotations
 
@@ -79,6 +85,14 @@ def analysis_seq(cfg: ArchConfig) -> int:
     return s
 
 
+def to_analysis(cfg: ArchConfig, params):
+    """The analysis form of a parameter tree: layers as a list (a CNN's
+    tree as it is)."""
+    if cfg.family == "cnn":
+        return params
+    return tf.unstack_layers(params, cfg.num_layers)
+
+
 def trace_model(model, params, batch=None) -> tuple[CompGraph, Any]:
     """Trace the model's unrolled forward over its layers as a list.
     Returns (graph, analysis-form params).
@@ -92,7 +106,7 @@ def trace_model(model, params, batch=None) -> tuple[CompGraph, Any]:
         dev = tree_paths(params)[0][1].device
         batch = model.dummy_batch(1, analysis_seq(cfg), device=dev)
     plain = type(model)(cfg.replace(use_kernels=False))
-    ap = tf.unstack_layers(params, cfg.num_layers)
+    ap = to_analysis(cfg, params)
     g = trace_graph(lambda p, b: plain.forward(p, b), ap, batch)
     return g, ap
 
@@ -127,6 +141,16 @@ def prunable(groups: list[Group]) -> list[Group]:
 # Selection
 # ---------------------------------------------------------------------------
 
+def _unit_param_count(gr: Group, shapes: dict[str, tuple]) -> int:
+    """Parameters one unit of ``gr`` holds (its slices' share of each
+    leaf)."""
+    n = 0
+    for sl in gr.units[0].slices:
+        shp = shapes[sl.path]
+        n += len(sl.positions) * int(np.prod(shp)) // shp[sl.axis]
+    return n
+
+
 def _aligned_keep(n_units: int, n_prune: int, align: int, min_keep: int) -> int:
     keep = n_units - n_prune
     keep = max(keep, min_keep, 1)
@@ -154,18 +178,66 @@ def _group_align(gr: Group, align_units: int, mesh_divisor: int) -> int:
 
 
 def select_units(groups: list[Group], scores: dict[str, np.ndarray],
-                 ratio: float, align_units: int = 1, min_keep: int = 1,
+                 ratio: float, mode: str = "per_group", align_units: int = 1,
+                 min_keep: int = 1, shapes: dict | None = None,
                  mesh_divisor: int = 0) -> dict[str, list[int]]:
-    """Per group: the lowest-scoring ``round(n * ratio)`` units (aligned)."""
+    """``per_group``: per group, the lowest-scoring ``round(n * ratio)``
+    units (aligned).  ``global``: all units in one ranking by score (ties in
+    group, then unit order), taken while the parameters they remove are
+    below ``ratio`` of all units' parameters and the unit's group keeps
+    ``max(min_keep, align_units)``; ``shapes`` (path -> shape) weighs each
+    unit by the parameters of its slices (a conv weight counts in the group
+    of its input channels and in that of its output channels, as in the
+    reference)."""
     pruned: dict[str, list[int]] = {}
-    for gr in groups:
-        s = scores[gr.key]
-        n = gr.n_units
-        a = _group_align(gr, align_units, mesh_divisor)
-        keep = _aligned_keep(n, int(round(n * ratio)), a, min_keep)
-        order = np.argsort(s, kind="stable")
-        pruned[gr.key] = sorted(int(i) for i in order[: n - keep])
+    if mode == "per_group":
+        for gr in groups:
+            s = scores[gr.key]
+            n = gr.n_units
+            a = _group_align(gr, align_units, mesh_divisor)
+            keep = _aligned_keep(n, int(round(n * ratio)), a, min_keep)
+            order = np.argsort(s, kind="stable")
+            pruned[gr.key] = sorted(int(i) for i in order[: n - keep])
+    elif mode == "global":
+        if shapes is None:
+            raise ValueError("global selection needs the leaves' shapes")
+        weights = {gr.key: _unit_param_count(gr, shapes) for gr in groups}
+        total = sum(weights[gr.key] * gr.n_units for gr in groups)
+        entries = [(float(s), gr.key, u, weights[gr.key])
+                   for gr in groups for u, s in enumerate(scores[gr.key])]
+        entries.sort(key=lambda e: e[0])
+        kept = {gr.key: gr.n_units for gr in groups}
+        budget = ratio * total
+        removed = 0.0
+        sel: dict[str, list[int]] = {gr.key: [] for gr in groups}
+        for _, key, u, w in entries:
+            if removed >= budget:
+                break
+            if kept[key] - 1 < max(min_keep, align_units):
+                continue
+            sel[key].append(u)
+            kept[key] -= 1
+            removed += w
+        # enforce alignment by un-pruning the best of the over-pruned
+        for gr in groups:
+            keep = _aligned_keep(gr.n_units, len(sel[gr.key]), align_units,
+                                 min_keep)
+            order = sorted(sel[gr.key],
+                           key=lambda u: float(scores[gr.key][u]))
+            pruned[gr.key] = sorted(order[:gr.n_units - keep])
+    else:
+        raise ValueError(f"unknown selection mode {mode!r}")
     return pruned
+
+
+def default_mode(cfg: ArchConfig) -> str:
+    """The reference's default: ``global`` for the cnn family, else
+    ``per_group``."""
+    return "global" if cfg.family == "cnn" else "per_group"
+
+
+def leaf_shapes(ap) -> dict[str, tuple]:
+    return {path: tuple(x.shape) for path, x in tree_paths(ap)}
 
 
 # ---------------------------------------------------------------------------
@@ -200,8 +272,11 @@ def apply_pruning(analysis_params, dele: dict[tuple[str, int], set[int]]):
 
 
 def infer_config(cfg: ArchConfig, analysis_params) -> ArchConfig:
-    """Read the pruned dims back into a new ArchConfig."""
+    """Read the pruned dims back into a new ArchConfig.  A CNN keeps its
+    config: its forward reads the widths off the tensors."""
     tf.require_ported(cfg)
+    if cfg.family == "cnn":
+        return cfg
     layer0 = analysis_params["layers"][0]
     kw: dict[str, Any] = {"name": cfg.name + "-pruned"}
     if "attn" in layer0:
@@ -227,6 +302,8 @@ def infer_config(cfg: ArchConfig, analysis_params) -> ArchConfig:
 
 def restack(cfg: ArchConfig, analysis_params):
     tf.require_ported(cfg)
+    if cfg.family == "cnn":
+        return analysis_params
     return tf.stack_layers(analysis_params)
 
 
@@ -235,9 +312,11 @@ def restack(cfg: ArchConfig, analysis_params):
 # ---------------------------------------------------------------------------
 
 def prune_model(model, params, ratio: float, criterion: str = "l1",
-                align_units: int = 1, grads_batch=None, seed: int = 0,
+                mode: str | None = None, align_units: int = 1,
+                grads_batch=None, seed: int = 0,
                 mesh_divisor: int = 0) -> PruneResult:
-    """End-to-end SPA pruning (paper §3.2 four steps), per group.
+    """End-to-end SPA pruning (paper §3.2 four steps); ``mode`` None is
+    ``default_mode(cfg)``.
 
     ``align_units`` rounds kept unit counts to a multiple (1: none);
     ``mesh_divisor`` keeps previously divisible axes divisible by a
@@ -264,7 +343,9 @@ def prune_model(model, params, ratio: float, criterion: str = "l1",
             grads, hg = hessian_grad_product(loss, ap)
     scores_tree = leaf_scores(ap, criterion, grads=grads, hg=hg, seed=seed)
     scores = unit_scores(targets, scores_tree)
-    pruned = select_units(targets, scores, ratio, align_units=align_units,
+    mode = mode or default_mode(cfg)
+    pruned = select_units(targets, scores, ratio, mode=mode,
+                          align_units=align_units, shapes=leaf_shapes(ap),
                           mesh_divisor=mesh_divisor)
     clock.lap("score")
     dele = delete_positions(targets, pruned)
@@ -274,7 +355,7 @@ def prune_model(model, params, ratio: float, criterion: str = "l1",
     clock.lap("slice")
 
     report = {
-        "criterion": criterion, "ratio": ratio, "mode": "per_group",
+        "criterion": criterion, "ratio": ratio, "mode": mode,
         "groups_total": len(groups), "groups_pruned": len(targets),
         "units_pruned": {k: len(v) for k, v in pruned.items() if v},
         "seconds": clock.seconds,

@@ -1,6 +1,7 @@
-"""Deterministic synthetic data for the LM families: a learnable task and the
-calibration samplers, drawn with numpy exactly as the reference's
-``repro/data/synthetic.py`` draws them, so a seed gives identical tokens.
+"""Deterministic synthetic data for the LM and CNN families: learnable tasks
+and the calibration samplers, drawn with numpy exactly as the reference's
+``repro/data/synthetic.py`` draws them, so a seed gives identical tokens and
+images.
 
 The paper's OBSPA experiments need three calibration regimes (§3.3):
   ID       — samples from the training distribution
@@ -10,7 +11,8 @@ The paper's OBSPA experiments need three calibration regimes (§3.3):
 LM tasks are order-2 Markov chains (learnable bigram structure).  The task's
 ``(vocab, vocab)`` transition matrix is built only when the mode samples from
 it: ``datafree`` never does, and at a 32000-token vocabulary the matrix
-alone is 8 GB.  The image and audio tasks wait for their families
+alone is 8 GB.  Vision tasks are class prototypes + noise; their DataFree
+images are uniform in [-1, 1).  The audio task waits for its family
 (ROADMAP.md Queue 1 item 14).
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-_LATER = "ROADMAP.md Queue 1 item 14 (CNN, audio, VLM)"
+_LATER = "ROADMAP.md Queue 1 item 14 (audio, VLM)"
 
 
 @dataclasses.dataclass
@@ -49,25 +51,50 @@ class MarkovLM:
         return out
 
 
-def make_task(cfg, mode: str = "id", seed: int = 0) -> MarkovLM:
+@dataclasses.dataclass
+class PrototypeImages:
+    n_classes: int
+    image_size: int
+    seed: int = 0
+    noise: float = 0.6
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        self.protos = rng.normal(
+            size=(self.n_classes, self.image_size, self.image_size, 3)
+        ).astype(np.float32)
+
+    def sample(self, rng: np.random.Generator, batch: int):
+        labels = rng.integers(0, self.n_classes, batch)
+        imgs = self.protos[labels] + rng.normal(
+            size=(batch, self.image_size, self.image_size, 3)
+        ).astype(np.float32) * self.noise
+        return imgs.astype(np.float32), labels.astype(np.int32)
+
+
+def make_task(cfg, mode: str = "id", seed: int = 0):
     """A data source for (cfg, mode).  OOD = different seed."""
-    if cfg.family in ("cnn", "audio", "vlm"):
+    if cfg.family in ("audio", "vlm"):
         raise NotImplementedError(f"{cfg.family} data is not ported yet — "
                                   f"{_LATER}")
     s = seed if mode == "id" else seed + 7919
+    if cfg.family == "cnn":
+        return PrototypeImages(cfg.num_classes, cfg.image_size, seed=s)
     return MarkovLM(cfg.vocab_size, seed=s)
 
 
 def batches(cfg, mode: str, n_batches: int, batch: int, seq: int,
             seed: int = 0, task_seed: int = 0, device=None) -> list[dict]:
-    """Calibration / training batches ``{"tokens": (batch, seq) int32}`` on
-    ``device`` (None: the CUDA device).  mode: id | ood | datafree | eval.
+    """Calibration / training batches on ``device`` (None: the CUDA
+    device): ``{"tokens": (batch, seq) int32}``, or for a CNN ``{"images":
+    (batch, size, size, 3) f32, "labels": (batch,) int32}`` (``seq``
+    unused).  mode: id | ood | datafree | eval.
 
-    ``task_seed`` fixes the task identity (transition matrix); ``seed`` only
-    drives sampling — so every batch draws from the SAME learnable
-    distribution.
+    ``task_seed`` fixes the task identity (transition matrix / prototypes);
+    ``seed`` only drives sampling — so every batch draws from the SAME
+    learnable distribution.
     """
-    if cfg.family in ("cnn", "audio", "vlm"):
+    if cfg.family in ("audio", "vlm"):
         raise NotImplementedError(f"{cfg.family} batches are not ported yet "
                                   f"— {_LATER}")
     dev = resolve_device(device)
@@ -79,6 +106,17 @@ def batches(cfg, mode: str, n_batches: int, batch: int, seq: int,
                          seed=task_seed)
     out = []
     for _ in range(n_batches):
+        if cfg.family == "cnn":
+            if task is None:
+                size = (batch, cfg.image_size, cfg.image_size, 3)
+                imgs = rng.random(size, dtype=np.float32) * 2 - 1
+                labels = rng.integers(0, cfg.num_classes,
+                                      batch).astype(np.int32)
+            else:
+                imgs, labels = task.sample(rng, batch)
+            out.append({"images": torch.from_numpy(imgs).to(dev),
+                        "labels": torch.from_numpy(labels).to(dev)})
+            continue
         if task is None:
             toks = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
         else:

@@ -4,6 +4,8 @@
       --reduced --steps 200 --ckpt-dir /tmp/run1 [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.train --arch tinyllama-1.1b \
       --reduced --steps 100 --prune-ratio 0.5 --prune-at 50   # prune mid-run
+  PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18-cifar \
+      --reduced --steps 4 --prune-ratio 0.5 --prune-at 2 --device cpu
 
 Runs on the CUDA device; ``--device cpu`` asks for the CPU explicitly.  The
 supervisor restarts from the newest valid checkpoint on failure
@@ -19,11 +21,12 @@ from repro_torch.configs import get_config, reduced as reduce_cfg
 from repro_torch.data.synthetic import batches
 from repro_torch.device import resolve_device
 from repro_torch.models import build
+from repro_torch.models.cnn import stage_widths
 from repro_torch.train.loop import Trainer, TrainerConfig, run_with_restarts
 from repro_torch.train.optim import OptConfig
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true",
@@ -44,7 +47,7 @@ def main():
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device; 'cpu' "
                          "must be asked for)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -75,8 +78,13 @@ def main():
         # prune
         from repro_torch.core.pruner import prune_model
         pr = prune_model(model, res1.params, ratio=args.prune_ratio)
-        print(f"pruned: d_ff {cfg.d_ff}->{pr.cfg.d_ff}, "
-              f"heads {cfg.n_heads}->{pr.cfg.n_heads}")
+        if cfg.family == "cnn":
+            print(f"pruned ({pr.report['mode']}): channels a stage "
+                  f"{[c for c, _ in cfg.cnn_stages]} -> kept "
+                  f"{stage_widths(cfg, pr.params['params'])}")
+        else:
+            print(f"pruned: d_ff {cfg.d_ff}->{pr.cfg.d_ff}, "
+                  f"heads {cfg.n_heads}->{pr.cfg.n_heads}")
 
         class Warm:
             cfg = pr.cfg

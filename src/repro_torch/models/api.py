@@ -1,7 +1,8 @@
 """Model facade: one object per ArchConfig binding the pure functions of
-``models/transformer.py``.  ``init`` and the cache constructors take an
-explicit ``device``; ``None`` means the CUDA device and raises when there is
-none (ask for ``device="cpu"`` explicitly)."""
+``models/transformer.py``, or of ``models/cnn.py`` for the cnn family
+(``{"params", "state"}`` trees; no decode path).  ``init`` and the cache
+constructors take an explicit ``device``; ``None`` means the CUDA device and
+raises when there is none (ask for ``device="cpu"`` explicitly)."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +12,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import transformer as tf
 
 
@@ -24,13 +26,29 @@ class Model:
         on the target device."""
         gen = torch.Generator(device=resolve_device(device))
         gen.manual_seed(int(seed))
+        if self.cfg.family == "cnn":
+            params, state = cnn_mod.cnn_init(self.cfg, gen)
+            return {"params": params, "state": state}
         return tf.init_params(self.cfg, gen)
 
     # ----- training -----
     def loss(self, params, batch):
+        """(loss, metrics).  A CNN runs its BatchNorm in eval mode here, on
+        the running statistics in ``params["state"]``, as the reference's
+        ``Model.loss`` does (so a trainer moves those statistics by their
+        gradients; only ``recalibrate_bn`` refreshes them from data)."""
+        if self.cfg.family == "cnn":
+            loss, (_, metrics) = cnn_mod.cnn_loss(
+                self.cfg, params["params"], params["state"], batch,
+                train=False)
+            return loss, metrics
         return tf.loss_fn(params, self.cfg, batch)
 
     def forward(self, params, batch):
+        if self.cfg.family == "cnn":
+            logits, _ = cnn_mod.cnn_forward(
+                self.cfg, params["params"], params["state"], batch["images"])
+            return logits
         h, _ = tf.forward(params, self.cfg, batch)
         return tf.logits_from_hidden(params, self.cfg, h)
 
@@ -72,12 +90,21 @@ class Model:
     # ----- concrete dummy data (analysis traces, smoke tests) -----
     def dummy_batch(self, batch: int, seq: int, seed: int = 0,
                     device=None) -> dict:
-        """Seeded random tokens ``(batch, seq)`` int32, drawn with numpy so
-        that every device sees the same values."""
+        """Seeded random tokens ``(batch, seq)`` int32 — for a CNN, images
+        ``(batch, size, size, 3)`` f32 and labels ``(batch,)`` int32 (``seq``
+        unused) — drawn with numpy so that every device sees the same
+        values."""
         rng = np.random.default_rng(seed)
+        dev = resolve_device(device)
+        if self.cfg.family == "cnn":
+            s = self.cfg.image_size
+            imgs = rng.standard_normal((batch, s, s, 3)).astype(np.float32)
+            labels = rng.integers(0, self.cfg.num_classes, batch)
+            return {"images": torch.from_numpy(imgs).to(dev),
+                    "labels": torch.from_numpy(
+                        labels.astype(np.int32)).to(dev)}
         toks = rng.integers(0, self.cfg.vocab_size, size=(batch, seq))
-        return {"tokens": torch.from_numpy(toks.astype(np.int32)).to(
-            resolve_device(device))}
+        return {"tokens": torch.from_numpy(toks.astype(np.int32)).to(dev)}
 
 
 def build(cfg: ArchConfig) -> Model:

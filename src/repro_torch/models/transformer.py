@@ -12,7 +12,8 @@ Parameters are a nested dict of tensors with the reference's key paths;
 window is a static int (``layer_window``): ``cfg.sliding_window`` on the
 windowed layers, 0 (plain causal) on ``cfg.global_layers``.  The reference
 makes it data (``2**30`` on global layers) only because it scans its
-layers.  The other families (vlm, audio, cnn) raise
+layers.  The cnn family runs in ``models/cnn.py`` (``require_ported``
+admits it for the port's entry points); the vlm and audio families raise
 ``NotImplementedError`` naming the ROADMAP.md item that brings them.
 
 The moe family's layers return the router's load-balancing loss beside the
@@ -42,16 +43,16 @@ from repro_torch.models.layers import (
     swiglu_init)
 
 _LATER = {
-    "vlm": "Queue 1 item 14 (CNN, audio, VLM)",
-    "audio": "Queue 1 item 14 (CNN, audio, VLM)",
-    "cnn": "Queue 1 item 14 (CNN, audio, VLM)",
+    "vlm": "Queue 1 item 14 (audio, VLM)",
+    "audio": "Queue 1 item 14 (audio, VLM)",
 }
-PORTED = ("dense", "moe", "ssm", "hybrid")
+PORTED = ("dense", "moe", "ssm", "hybrid", "cnn")
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Admit the ported families (dense, moe, ssm, hybrid); the others
-    raise naming the ROADMAP.md item that brings them."""
+    """Admit the ported families (dense, moe, ssm, hybrid, and cnn, which
+    ``models/cnn.py`` runs); the others raise naming the ROADMAP.md item
+    that brings them."""
     if cfg.family not in PORTED or cfg.hybrid != (cfg.family == "hybrid") \
             or bool(cfg.n_experts) != (cfg.family == "moe") \
             or cfg.is_encoder:
