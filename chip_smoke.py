@@ -38,7 +38,10 @@ nothing of JAX or of the JAX package.  Phases:
     pruned, phase 13's 60 experts in one launch at K 1408 and its shared
     expert at K 22528, phase 14's conv consumers R 512 x K 4608 and R 64 x
     K 576 with whole channels — runs of 9 columns — pruned at 50 %, and
-    its classifier R 10 x K 512), then K4 alone on one column block at
+    its classifier R 10 x K 512, phase 15's hubert-xlarge attn.wo R 1280 x
+    K 1280 with whole heads pruned and w_down R 1280 x K 5120, and
+    paligemma-3b's w_down R 2048 x K 16384), then K4 alone on one column
+    block at
     the design's edge cases
     (no, one, 64 contiguous, all 128, the first or the last column pruned;
     R 1, 17, 2051; nb 4 with one shared Hinv), each call repeated bitwise,
@@ -144,17 +147,40 @@ nothing of JAX or of the JAX package.  Phases:
     consumer's layer-output error against plain slicing, those not below
     redone by a float64 plain sweep, and resnet50's ID and OOD errors
     summed over the model held below slicing's; K4's launches held to the
-    sum of ⌈K / 128⌉ over the swept consumers.
+    sum of ⌈K / 128⌉ over the swept consumers;
+15. the encoder and VLM families (random init from a seed, data from a
+    generator of its own): ``hubert-xlarge`` at full width (48 layers, d
+    1280, 16 heads of 80, bidirectional, 504 targets, bf16) — every layer's
+    attention on K2 against its plain version on 2 x 1000 frames, trained
+    by ``Trainer`` on ``FrameTask`` (24 steps of 8 x 512 frames, every
+    layer rematerialised), frame accuracy, then L1 and OBSPA ID at 0.5 on
+    its first ``HUBERT_PRUNE_LAYERS`` layers (K4 on ``attn.wo`` and
+    ``mlp.w_down``), each consumer's layer-output error against slicing
+    (summed, held below), the OBSPA-pruned model at 2 layers against its
+    float32 twin; ``vit-mini`` (196 patches) and ``distilbert-mini`` (128
+    tokens) at their registered size in float32 (K2's CUDA-core
+    instance), trained 100 steps and pruned at the paper's three times
+    (SNIP at init, L1 then fine-tuned, OBSPA ID / OOD / DataFree);
+    ``paligemma-3b`` at full width (18 layers, d 2048, MQA, 256 patches of
+    1152, vocab 257216, bf16) — the prefix mask's property on the card
+    with K2 launched 0 times (the reference runs ``prefix`` on its plain
+    attention), a few ``Trainer`` steps on DataFree tokens, L1 and OBSPA
+    DataFree, and the engine's refusal; accuracy or loss, RF / RP, prune
+    seconds and peak memory of each, and K2's and K4's launches held to
+    their formulas.
 
 Phases 3, 8 and 10 also hold K1, K3 and K2 at Hymba's shapes (G = 5, the
 window of 1024 over 2048 tokens, 50 SSM heads x 64 x state 16), K1 and K2
 at qwen2-moe's (16 heads of 128, G = 1; phase 2 prints the registers and
 spills of the instances this picks, and raises if one spills; phases 3b
-and 10b time them) and at the widths pruning leaves.
+and 10b time them), K2 at hubert-xlarge's (bidirectional, 16 heads of 80,
+G = 1, 4 x 1000 frames; phase 2 prints its instances, 10b times it) and
+at the widths pruning leaves; phase 6 holds K4 at phase 15's views.
 
 Every full-sequence ``Model.forward`` / ``Model.loss`` of an attention model
 on the card runs K2 (teacher forcing in phases 4 and 7, every evaluation in
-phase 11); training and the gradient criteria differentiate the plain
+phases 11 and 15), except a vlm's prefix mask, which runs the plain
+attention as the reference's does; training and the gradient criteria differentiate the plain
 attention, as the reference trains with ``use_pallas=False``.
 
 The kernels are built in parallel (one ``nvcc`` per source).  Any failing
@@ -162,8 +188,9 @@ phase raises, so the exit code is non-zero and no ``"ok"`` line
 is printed.  TF32 is off for matmuls and cuDNN throughout.
 
 ``--quick`` cuts phases 4, 7, 9, 11, 12 and 13 to 4 layers and a few requests
-or steps, and phase 14 to resnet18-cifar and vgg19-cifar at 10 steps (for a
-first look at a new kernel); ``--profile`` adds a
+or steps, phase 14 to resnet18-cifar and vgg19-cifar at 10 steps, and phase
+15 to its reduced configs (for a first look at a new kernel); ``--profile``
+adds a
 ``torch.profiler`` trace of one decode and one prefill step (device busy
 share, K1's time per step, top kernels).  The default is the full run without the trace.
 """
@@ -1255,6 +1282,13 @@ CNN_SWEEPS = (("cnn conv, last stage", 512, 4608, 9, 16 * 1024),
               ("cnn fc", 10, 512, 1, 1024))
 
 
+# (name, R, K, columns a pruned unit, calibration rows) of phase 15's
+# consumers
+ENCODER_SWEEPS = (("hubert attn.wo", 1280, 1280, 80, 4 * 4 * 512),
+                  ("hubert mlp.w_down", 1280, 5120, 1, 4 * 4 * 512),
+                  ("paligemma mlp.w_down", 2048, 16384, 1, 2 * 2 * 320))
+
+
 def channel_mask(seed, K, run, frac):
     """A prune mask of whole channels: runs of ``run`` columns, each run
     pruned with probability ``frac`` (on the card, from a seeded
@@ -1348,6 +1382,19 @@ def phase_k4_checks() -> float:
         worst = max(worst, e)
         del W, Hinv
     torch.cuda.empty_cache()
+    # phase 15's OBSPA shapes: hubert-xlarge's attn.wo (R 1280 x K 16·80)
+    # and mlp.w_down (R 1280 x K 5120) on the calibration's 8192 frames (4 x
+    # 4 x 512), whole heads (runs of 80 columns) pruned at 50 % from wo;
+    # paligemma-3b's w_down (R 2048 x K 16384) on its 1280 DataFree rows
+    # (2 x 2 x 320), fewer rows than columns: the damping alone makes H
+    # invertible
+    for i, (name, R, K, run, n) in enumerate(ENCODER_SWEEPS):
+        W, Hinv, _ = sweep_case(180 + i, R, K, 0.5, samples=n)
+        _, e = check_sweep(f"{name} R={R} K={K} runs of {run}, half pruned",
+                           W, Hinv, channel_mask(190 + i, K, run, 0.5))
+        worst = max(worst, e)
+        del W, Hinv
+        torch.cuda.empty_cache()
     print("  one column block (the kernel alone; W and E vs float64 and "
           "plain, two calls and the sweep in place bitwise equal):",
           flush=True)
@@ -2390,6 +2437,21 @@ K2_MOE_SHAPES = [
 ]
 
 
+# hubert-xlarge's attention (phase 15): bidirectional, 16 heads of 80 over
+# 16 KV heads (G = 1: one head a block; D 80 is five k16 steps, DV 80 takes
+# the 128-column accumulator) at B 4 x ~1000 frames (20 s of 50 Hz audio;
+# not a multiple of the 64-row tile); the float32 twin; the heads and DV
+# that pruning at 0.5 leaves (8 heads, DV 40); and vit-mini's f32 shape
+# (8 heads of 32, 196 patches, batch 32) on the CUDA-core instance
+K2_HUBERT = (4, 1000, 16, 16, 80, 80, False, 0, torch.bfloat16)
+K2_ENCODER_SHAPES = [
+    K2_HUBERT,
+    (2, 1000, 16, 16, 80, 80, False, 0, torch.float32),
+    (4, 1000, 8, 8, 80, 40, False, 0, torch.bfloat16),
+    (32, 196, 8, 8, 32, 32, False, 0, torch.float32),
+]
+
+
 def k2_case(seed, B, S, H, KH, D, DV, dtype, offset: int = 0):
     """q, k, v in model layout (B, S, heads, dim) on the card, standard
     normal from a seeded generator, rounded to ``dtype``; with ``offset``
@@ -2426,12 +2488,13 @@ def plan_text(pl) -> str:
 def phase_k2_checks() -> float:
     """K2 against its plain version at every shape, each on the instance
     ``plan`` picks (every bf16 shape on tensor cores); returns the largest
-    absolute error at the main path's shape."""
+    absolute errors at the main path's shape and at hubert-xlarge's."""
     print("phase 10: flash-attention kernel (K2) vs plain PyTorch version",
           flush=True)
-    main_err = 0.0
+    main_err = hubert_err = 0.0
     cases = [(s, 0) for s in K2_SHAPES] + [(s, 1) for s in K2_OFFSET_SHAPES] \
-        + [(s, 0) for s in K2_HYMBA_SHAPES] + [(s, 0) for s in K2_MOE_SHAPES]
+        + [(s, 0) for s in K2_HYMBA_SHAPES] + [(s, 0) for s in K2_MOE_SHAPES] \
+        + [(s, 0) for s in K2_ENCODER_SHAPES]
     for i, (shape, offset) in enumerate(cases):
         B, S, H, KH, D, DV, causal, window, dt = shape
         q, k, v = k2_case(300 + i, B, S, H, KH, D, DV, dt, offset)
@@ -2455,7 +2518,9 @@ def phase_k2_checks() -> float:
                                  f"by {over} or non-finite output")
         if shape == K2_MAIN and not offset:
             main_err = float(err.max())
-    return main_err
+        if shape == K2_HUBERT:
+            hubert_err = float(err.max())
+    return main_err, hubert_err
 
 
 def ptxas_kernels(log: str) -> list[dict]:
@@ -2531,36 +2596,45 @@ def build_report(name: str, label: str) -> dict:
     return {"kernels": kernels, "sass": sass}
 
 
-# the K1 / K2 instances phase 13's qwen2-moe path picks: bf16 split-KV
+# the K1 / K2 instances a path picks.  Phase 13's qwen2-moe: bf16 split-KV
 # decode and wgmma prefill at DV 128 (dense) and 64 (pruned), K2's wgmma
-# instance at the same DV tiles with 16-byte copies
-MOE_INSTANCES = {
-    "K1": (r"paged_attention_decode_mma_kernel<__nv_bfloat16, (128|64)>",
-           r"paged_attention_kernel_wgmma<__nv_bfloat16, (128|64)>"),
-    "K2": (r"flash_attention_kernel_wgmma<(128|64), true>",),
+# instance at the same DV tiles with 16-byte copies.  Phase 15's
+# hubert-xlarge: K2's wgmma instance at DV tile 128 for D = DV 80 (48 of
+# its 128 accumulator columns padding) and 64 for the pruned DV 40; the
+# minis' f32 CUDA-core instance at DV 32
+PATH_INSTANCES = {
+    "qwen2-moe": {
+        "K1": (r"paged_attention_decode_mma_kernel<__nv_bfloat16, (128|64)>",
+               r"paged_attention_kernel_wgmma<__nv_bfloat16, (128|64)>"),
+        "K2": (r"flash_attention_kernel_wgmma<(128|64), true>",)},
+    "hubert-xlarge": {
+        "K2": (r"flash_attention_kernel_wgmma<128, true>",
+               r"flash_attention_kernel_wgmma<64, true>",
+               r"flash_attention_kernel<1>")},
 }
 
 
-def path_instances(report: dict, label: str) -> list[dict]:
-    """The instances of ``MOE_INSTANCES[label]`` in a library's build
+def path_instances(report: dict, label: str, path: str = "qwen2-moe"
+                   ) -> list[dict]:
+    """The instances of ``PATH_INSTANCES[path][label]`` in a library's build
     report, printed with their registers, spills and stack; raises when one
     spills or a pattern matches no instance."""
     ks = report["kernels"]
     if not ks:
         return []
     out = []
-    for pat in MOE_INSTANCES[label]:
+    for pat in PATH_INSTANCES[path][label]:
         found = [k for k in ks if re.search(pat, k["name"])]
         if not found:
             raise AssertionError(f"{label}: no instance matches {pat}")
         out += found
     for k in out:
-        print(f"  qwen2-moe path {label} {k['name'].split('(')[0]}: "
+        print(f"  {path} path {label} {k['name'].split('(')[0]}: "
               f"{k['registers']} registers, {k['spill_bytes']} bytes "
               f"spilled, {k['stack_bytes']} bytes of stack", flush=True)
     spilled = [k["name"] for k in out if k["spill_bytes"]]
     if spilled:
-        raise AssertionError(f"{label} instances of the qwen2-moe path "
+        raise AssertionError(f"{label} instances of the {path} path "
                              f"spill registers: {spilled}")
     return [{"name": k["name"].split("(")[0], "registers": k["registers"],
              "spill_bytes": k["spill_bytes"],
@@ -2628,17 +2702,19 @@ def time_k2(iters: int = 20, rounds: int = 6, shape=None) -> dict:
             k.transpose(1, 2).repeat_interleave(H // KH, 1).contiguous(),
             v.transpose(1, 2).repeat_interleave(H // KH, 1).contiguous())
            for q, k, v in cases]
-    out = k2.flash_attention_kernel(*cases[0])
-    ref = k2.flash_attention_ref(*cases[0])
-    lib_out = F.scaled_dot_product_attention(*lib[0], is_causal=True)
+    out = k2.flash_attention_kernel(*cases[0], causal=causal)
+    ref = k2.flash_attention_ref(*cases[0], causal=causal)
+    lib_out = F.scaled_dot_product_attention(*lib[0], is_causal=causal)
     torch.cuda.synchronize()
     max_err = float((out.float() - ref.float()).abs().max())
     lib_err = float((lib_out.transpose(1, 2).float() - ref.float()).abs()
                     .max())
-    kern = lambda i: k2.flash_attention_kernel(*cases[i % n_rot])  # noqa
-    plain = lambda i: k2.flash_attention_ref(*cases[i % n_rot])  # noqa
+    kern = lambda i: k2.flash_attention_kernel(  # noqa: E731
+        *cases[i % n_rot], causal=causal)
+    plain = lambda i: k2.flash_attention_ref(  # noqa: E731
+        *cases[i % n_rot], causal=causal)
     libf = lambda i: F.scaled_dot_product_attention(  # noqa: E731
-        *lib[i % n_rot], is_causal=True)
+        *lib[i % n_rot], is_causal=causal)
     plain_a = time_ms(plain, iters=5, warmup=1)
     rounds_ = []
     for r in range(rounds):
@@ -2658,7 +2734,8 @@ def time_k2(iters: int = 20, rounds: int = 6, shape=None) -> dict:
     bound = max(t_bytes, t_flops)
     # the unchanged f32 instance at the same shape, in f32
     c32 = [[x.float() for x in c] for c in cases[:2]]
-    k32 = lambda i: k2.flash_attention_kernel(*c32[i % 2])  # noqa: E731
+    k32 = lambda i: k2.flash_attention_kernel(  # noqa: E731
+        *c32[i % 2], causal=causal)
     f32_ms = time_ms(k32, iters=5, warmup=1)
     f32_device = kernel_device_ms(k32, "flash_attention_kernel", 5)
     del c32
@@ -2679,7 +2756,8 @@ def time_k2(iters: int = 20, rounds: int = 6, shape=None) -> dict:
         "rounds": rounds_, "f32_ms": f32_ms, "f32_device_ms": f32_device,
         "library_max_abs_err_vs_plain": lib_err,
     }
-    print(f"  flash_attention B{B} S{S} H{H} KH{KH} D{D} causal bf16 "
+    print(f"  flash_attention B{B} S{S} H{H} KH{KH} D{D} DV{DV} "
+          f"{'causal' if causal else 'bidirectional'} bf16 "
           f"[{entry['instance']}], {rounds} alternating rounds of {iters} "
           f"calls:", flush=True)
     for i, x in enumerate(rounds_):
@@ -2754,11 +2832,18 @@ def train(model, batches_, lr: float) -> tuple[dict, dict]:
                   ).train(iter(batches_))
     step_s = [r["step_s"] for r in res.history[1:]]      # the first warms up
     first = batches_[0]
-    unit, n = (("tokens", first["tokens"].numel()) if "tokens" in first
-               else ("images", first["images"].shape[0]))
+    if "frames" in first:
+        unit, n = "frames", first["frames"].shape[0] * first["frames"].shape[1]
+    elif "tokens" in first:
+        unit, n = "tokens", first["tokens"].numel()
+    else:
+        unit, n = "images", first["images"].shape[0]
+    losses = [r["loss"] for r in res.history]
+    quarter = max(len(losses) // 4, 1)
     rec = {"steps": steps, "lr": lr,
-           "train_loss_first": res.history[0]["loss"],
-           "train_loss_last": res.history[-1]["loss"],
+           "train_loss_first": losses[0], "train_loss_last": losses[-1],
+           "train_loss_first_quarter": float(np.mean(losses[:quarter])),
+           "train_loss_last_quarter": float(np.mean(losses[-quarter:])),
            "step_ms_median": 1e3 * float(np.median(step_s)),
            "first_step_ms": 1e3 * res.history[0]["step_s"],
            f"{unit}_per_s": n / float(np.median(step_s)),
@@ -3299,7 +3384,8 @@ def obspa_on_card(model, params, calib, calib_mode: str = "datafree"
     t0 = time.time()
     pr = obspa_prune(model, params, 0.5, calib, calib_mode=calib_mode)
     torch.cuda.synchronize()
-    first = calib[0].get("tokens", calib[0].get("images"))
+    first = next(calib[0][k] for k in ("frames", "tokens", "images")
+                 if k in calib[0])
     rep = {"ratio": 0.5, "criterion": "obspa",
            "calibration": f"{calib_mode} {len(calib)} x "
                           f"{tuple(first.shape)}",
@@ -3876,6 +3962,19 @@ def phase_moe_path(seed: int, quick: bool) -> dict:
 # fine-tuning 50 steps; OBSPA calibrates on 16 x 64 images a regime (16384
 # rows at the last stage's 4 x 4 maps for K 4608, 1024 for the classifier's
 # K 512); accuracy on 8 x 256 "eval" images
+def timed_prune(model, params, criterion: str, **kw) -> tuple:
+    """``prune_model`` at ratio 0.5 with its wall time, seconds by phase
+    and peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    pr = prune_model(model, params, 0.5, criterion=criterion, **kw)
+    torch.cuda.synchronize()
+    return pr, {"criterion": criterion, "mode": pr.report["mode"],
+                "wall_s": time.time() - t0, "seconds": pr.report["seconds"],
+                "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+
+
 CNN = dict(batch=128, steps=100, ft_steps=50, calib=(16, 64), evals=(8, 256))
 # AdamW's peak lr: the reference benchmarks' 3e-3 for the ResNets; VGG-19,
 # whose loss runs BatchNorm as a fixed affine map (eval mode), kills most
@@ -4038,21 +4137,10 @@ def cnn_model_path(name: str, c: dict, rng, three_times: bool
         print(f"  {label:32s} {txt}", flush=True)
         return r
 
-    def l1_or_snip(criterion, p, **kw):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        pr = prune_model(model, p, 0.5, criterion=criterion, **kw)
-        torch.cuda.synchronize()
-        return pr, {"criterion": criterion, "mode": pr.report["mode"],
-                    "wall_s": time.time() - t0,
-                    "seconds": pr.report["seconds"],
-                    "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-
     out["dense_init"] = report("dense at init", model, init)
     if three_times:
         # prune-train: SPA-SNIP at init on one gradient batch, then train
-        pr, rep = l1_or_snip("snip", init, grads_batch=grad_b)
+        pr, rep = timed_prune(model, init, "snip", grads_batch=grad_b)
         r = {"after_prune": report("prune-train: SNIP at init", build(pr.cfg),
                                    pr.params, pr, rep, init)}
         p_pt, r["train"] = train(Warm(pr.cfg, pr.params), train_b, lr)
@@ -4092,7 +4180,7 @@ def cnn_model_path(name: str, c: dict, rng, three_times: bool
                              f"from float64")
 
     # train-prune-finetune: SPA-L1 (global) after training, then fine-tune
-    pr, rep = l1_or_snip("l1", dense)
+    pr, rep = timed_prune(model, dense, "l1")
     r = {"after_prune": report("train-prune: L1", build(pr.cfg), pr.params,
                                pr, rep, dense)}
     if three_times:
@@ -4194,12 +4282,552 @@ def phase_cnn_path(seed: int, quick: bool) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the encoder and VLM families at full width
+# ---------------------------------------------------------------------------
+
+# hubert-xlarge: 24 Trainer steps of 8 x 512 frames (10 s of 50 Hz audio a
+# sequence) of the "id" FrameTask, lr 3e-4, every layer rematerialised (the
+# config's remat; ~1 s a step on an H100); frame accuracy on 8 "eval"
+# batches of 8 x 512; OBSPA ID on 4 x 4 x 512 frames; the layer checks on
+# 2 x 1000 frames
+ENCODER = dict(batch=8, seq=512, steps=24, lr=3e-4, evals=(8, 8),
+               calib=(4, 4), check=(2, 1000))
+# the prunes' depth: the host's trace, grouping and scoring grow with the
+# layers (L1 28.5 s, OBSPA 34.1 s at all 48 on an H100's host), so the
+# prunes run on the first 24 to keep phase 15 within its budget
+HUBERT_PRUNE_LAYERS = 24
+# the paper's encoders at their registered size (6 layers, d 256, f32):
+# vit-mini on 196 patches (224 px / 16), distilbert-mini on 128 tokens;
+# batches of 32, 100 steps at lr 1e-3 (50 to fine-tune), accuracy on 8 x
+# 32 "eval" sequences, OBSPA calibrated on 8 x 32 sequences
+MINI_SEQ = {"vit-mini": 196, "distilbert-mini": 128}
+MINI = dict(batch=32, steps=100, ft_steps=50, lr=1e-3, evals=(8, 32),
+            calib=(8, 32))
+# paligemma-3b: 256 image tokens + 64 text tokens a sequence, 6 Trainer
+# steps of 2 (DataFree tokens: MarkovLM's 257216² matrix cannot be built),
+# OBSPA DataFree on 2 x 2 sequences
+PALIGEMMA = dict(batch=2, text=64, steps=6, lr=1e-4, calib=(2, 2))
+# paligemma's prefix property: the logits a change of the last text token
+# may move elsewhere, relative to the largest logit (the reference's CPU
+# test allows 1e-5 absolute)
+PREFIX_TOL = 1e-5
+
+
+def encoder_accuracy(model, params, evalb) -> float:
+    """Accuracy of ``Model.forward`` (K2 on the card: one launch a layer a
+    batch) on ``evalb``: a sequence's class from its mean logits (the mean
+    of the per-frame logits is the classifier on the mean hidden state)
+    with at most 16 classes, else every frame's argmax against its
+    target.  Every logit must be finite."""
+    hits = total = 0
+    with torch.no_grad():
+        for b in evalb:
+            logits = model.forward(params, b).float()
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{model.cfg.name}: non-finite logits")
+            if model.cfg.vocab_size <= 16:
+                logits = logits.mean(dim=1)
+            hits += int((logits.argmax(-1) == b["targets"].long()).sum())
+            total += b["targets"].numel()
+    return hits / total
+
+
+def encoder_blocks_vs_plain(model, params, B: int, S: int) -> dict:
+    """Every layer's bidirectional attention on K2 against its plain
+    version, on the input the plain forward gives that layer (B x S
+    frames): max|Δ| / max|plain| per layer.  Launches K2 once a layer."""
+    cfg = model.cfg
+    plain = cfg.replace(use_kernels=False)
+    batch = model.dummy_batch(B, S, seed=15)
+    pos = torch.arange(S, dtype=torch.int32, device=DEV)[None].expand(B, S)
+    errs = []
+    with torch.no_grad():
+        h = tf.embed_inputs(params, cfg, batch)
+        for i, lp in enumerate(tf.unstack_layers(params,
+                                                 cfg.num_layers)["layers"]):
+            hn = rms_norm(h, lp["ln1"], cfg.norm_eps)
+            a = attn_block(lp["attn"], cfg, hn, pos, "bidir")
+            a_p = attn_block(lp["attn"], plain, hn, pos, "bidir")
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"layer {i}: non-finite K2 output")
+            errs.append(ssd_rel(a, a_p))
+            h = h + a_p
+            h = h + swiglu(lp["mlp"], rms_norm(h, lp["ln2"], cfg.norm_eps))
+    return {"max_rel": max(errs), "worst_layer": int(np.argmax(errs)),
+            "per_layer": errs, "shape": [B, S]}
+
+
+def encoder_twin(cfg, params, n: int, B: int, S: int) -> dict:
+    """The model cut to its first ``n`` layers: its forward on K2, on the
+    plain attention and in float32 (plain) on B x S frames; the largest
+    logit difference of each pair, and K2's limit: the plain version's own
+    distance from float32 plus one bf16 step of the largest logit (the
+    logits are bf16, so two paths that agree to the last bit of the f32
+    sum can still round a logit to neighbouring bf16 values: at |logit| ~5
+    one step is 0.031, more than the plain version's whole distance from
+    float32 at 2 layers).  Launches K2 ``n`` times."""
+    c = cfg.replace(num_layers=n)
+    p = first_layers(params, n)
+    m = build(c)
+    batch = m.dummy_batch(B, S, seed=11)
+    with torch.no_grad():
+        a = m.forward(p, batch).float()
+        b = build(c.replace(use_kernels=False)).forward(p, batch).float()
+        f = build(c.replace(dtype="float32", use_kernels=False)).forward(
+            f32_tree(p), batch).float()
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{cfg.name} first {n} layers: non-finite "
+                             f"logits on K2")
+    return {"layers": n, "k2_vs_plain": float((a - b).abs().max()),
+            "k2_vs_f32": float((a - f).abs().max()),
+            "plain_vs_f32": float((b - f).abs().max()),
+            "plain_max_abs": float(b.abs().max()),
+            "twin_limit": float((b - f).abs().max())
+            + BF16_BLOCK_TOL * float(b.abs().max())}
+
+
+def errors_text(rep) -> str:
+    ratios = [e["ratio"] for e in rep["layer_errors"].values()
+              if e["ratio"] is not None]
+    tot = rep["summed_errors"]
+    return (f"layer output error ‖X(W-W')‖², OBSPA / plain slicing, "
+            f"{len(ratios)} consumers: {min(ratios):.4f}..{max(ratios):.4f}, "
+            f"{sum(x >= 1 for x in ratios)} not below; summed "
+            f"{tot['obspa']:.6g} / {tot['slicing']:.6g} = "
+            f"{tot['obspa'] / tot['slicing']:.6f}")
+
+
+def check_obspa_errors(label, rep, mode: str) -> None:
+    """What the reconstruction must do: lower the layer-output error summed
+    over the model below plain slicing's, for ID and OOD calibration (the
+    reference's sweep takes each pruned column's update from the rows of
+    one fixed Hinv, so single consumers can end at or above slicing)."""
+    tot = rep["summed_errors"]
+    if mode != "datafree" and not tot["obspa"] < tot["slicing"]:
+        raise AssertionError(f"{label}: summed layer output error {tot} not "
+                             f"below slicing's")
+
+
+def hubert_path(rng, quick: bool, counts: dict) -> dict:
+    """hubert-xlarge at full width (48 layers, d 1280, 16 heads of 80, bf16;
+    ``quick``: the reduced config in bf16): K2 per layer against plain,
+    trained by ``Trainer``, frame accuracy, then L1 and OBSPA ID at 0.5
+    (the first ``HUBERT_PRUNE_LAYERS`` layers), each evaluated; the
+    OBSPA-pruned model at 2 layers against its float32 twin."""
+    cfg = get_config("hubert-xlarge")
+    c = dict(ENCODER)
+    if quick:
+        # at d 64 the bf16 weights' steps are ~1e-3: a step of lr 3e-4
+        # rounds away
+        cfg = reduced(cfg).replace(dtype=cfg.dtype, remat=cfg.remat)
+        c.update(steps=20, lr=3e-3, evals=(2, 4), calib=(2, 4),
+                 check=(2, 200))
+    model = build(cfg)
+    L = cfg.num_layers
+    seeds = [int(x) for x in rng.integers(0, 2**31, 5)]
+    params = model.init(seed=seeds[0])
+    out = {"model": cfg.name, "layers": L, "params": n_params(params),
+           "param_count": cfg.param_count(), "config": c}
+    t0 = time.time()
+    train_b = batches(cfg, "id", c["steps"], c["batch"], c["seq"],
+                      seed=seeds[1])
+    evalb = batches(cfg, "eval", *c["evals"], c["seq"], seed=seeds[2])
+    out["data_s"] = time.time() - t0
+    print(f"  model: {cfg.name}, {L} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} heads of {cfg.head_dim_} (bidirectional), d_ff "
+          f"{cfg.d_ff}, {cfg.vocab_size} targets, {cfg.dtype}; "
+          f"{out['params']} parameters (config's count "
+          f"{out['param_count']}); FrameTask data {out['data_s']:.1f}s",
+          flush=True)
+    if out["params"] != out["param_count"]:
+        raise AssertionError(f"{cfg.name}: {out['params']} parameters held, "
+                             f"the config counts {out['param_count']}")
+
+    blocks = encoder_blocks_vs_plain(model, params, *c["check"])
+    counts["k2"] += L
+    out["blocks"] = blocks
+    print(f"  attention on K2 vs plain, every layer, {c['check'][0]} x "
+          f"{c['check'][1]} frames: max|Δ| / max|plain| "
+          f"{blocks['max_rel']:.2e} (layer {blocks['worst_layer']}; tol "
+          f"{BF16_BLOCK_TOL:.2e}, one bf16 step)", flush=True)
+    if blocks["max_rel"] > BF16_BLOCK_TOL:
+        raise AssertionError(f"{cfg.name}: K2 vs plain {blocks['max_rel']} "
+                             f"> {BF16_BLOCK_TOL}")
+    out["dense_init_accuracy"] = encoder_accuracy(model, params, evalb)
+    counts["k2"] += L * len(evalb)
+
+    dense, tr = train(Warm(cfg, params), train_b, c["lr"])
+    out["train"] = tr
+    out["dense_accuracy"] = encoder_accuracy(model, dense, evalb)
+    counts["k2"] += L * len(evalb)
+    print(f"  trained {tr['steps']} steps of {c['batch']} x {c['seq']} "
+          f"frames at lr {c['lr']:g} (remat {cfg.remat}): median step "
+          f"{tr['step_ms_median']:.1f} ms ({tr['frames_per_s']:.0f} "
+          f"frames/s; first {tr['first_step_ms']:.0f} ms), loss "
+          f"{tr['train_loss_first']:.4f} -> {tr['train_loss_last']:.4f} "
+          f"(quarter means {tr['train_loss_first_quarter']:.4f} -> "
+          f"{tr['train_loss_last_quarter']:.4f}), "
+          f"peak {tr['peak_mem_bytes'] / 2**30:.2f} GiB | frame accuracy "
+          f"{out['dense_init_accuracy']:.4f} at init -> "
+          f"{out['dense_accuracy']:.4f} ({len(evalb)} x {c['evals'][1]} x "
+          f"{c['seq']} frames)", flush=True)
+    if not tr["train_loss_last_quarter"] < tr["train_loss_first_quarter"]:
+        raise AssertionError(f"{cfg.name}: training did not lower the loss")
+
+    n = min(HUBERT_PRUNE_LAYERS, L)
+    pcfg = cfg.replace(num_layers=n)
+    pm, pd = build(pcfg), first_layers(dense, n)
+    if n < L:
+        out["dense_accuracy_cut"] = encoder_accuracy(pm, pd, evalb)
+        counts["k2"] += n * len(evalb)
+    out["prune_layers"] = n
+    calib = batches(cfg, "id", *c["calib"], c["seq"], seed=seeds[3])
+    for crit in ("l1", "obspa"):
+        if crit == "l1":
+            pr, rep = timed_prune(pm, pd, "l1")
+        else:
+            pr, rep = obspa_on_card(pm, pd, calib, calib_mode="id")
+            rep["k4_expected"] = obspa_blocks(pcfg)
+            counts["k4"] += rep["k4_expected"]
+        m2 = build(pr.cfg)
+        rr = rf_rp(pm, pd, m2, pr.params, evalb[0])
+        rep.update(rf=rr["RF"], rp=rr["RP"], params_after=rr["params_after"],
+                   dims=pruned_dims(pr.cfg),
+                   accuracy=encoder_accuracy(m2, pr.params, evalb))
+        counts["k2"] += n * len(evalb)
+        print_prune(f"{crit} ({n} of {L} layers)", pruned_dims(pcfg),
+                    rep["dims"], rep)
+        print(f"    RF {rr['RF']:.3f} RP {rr['RP']:.3f} | frame accuracy "
+              f"after the prune {rep['accuracy']:.4f}"
+              + (f" | K4 launches {rep['k4_launches']} (formula {n} x "
+                 f"(⌈{cfg.n_heads * cfg.v_head_dim_}/128⌉ + "
+                 f"⌈{cfg.d_ff}/128⌉) = {rep['k4_expected']})"
+                 if crit == "obspa" else ""), flush=True)
+        if crit == "obspa":
+            print(f"    {errors_text(rep)}", flush=True)
+            check_obspa_errors(f"{cfg.name} OBSPA (id)", rep, "id")
+            if rep["k4_launches"] != rep["k4_expected"]:
+                raise AssertionError(f"{cfg.name} OBSPA: K4 launches "
+                                     f"{rep['k4_launches']} != "
+                                     f"{rep['k4_expected']}")
+            twin = encoder_twin(pr.cfg, pr.params, SHALLOW_LAYERS,
+                                *c["check"])
+            counts["k2"] += SHALLOW_LAYERS
+            rep["twin"] = twin
+            print(f"    OBSPA-pruned, first {SHALLOW_LAYERS} layers, "
+                  f"{c['check'][0]} x {c['check'][1]} frames: max logit "
+                  f"diff K2 vs plain {twin['k2_vs_plain']:.4f}, K2 vs "
+                  f"float32 twin {twin['k2_vs_f32']:.4f}, plain vs float32 "
+                  f"twin {twin['plain_vs_f32']:.4f} (max|logit| "
+                  f"{twin['plain_max_abs']:.3f}; K2's limit "
+                  f"{twin['twin_limit']:.4f})", flush=True)
+            if twin["k2_vs_f32"] > twin["twin_limit"]:
+                raise AssertionError(f"{cfg.name} pruned: K2 is farther "
+                                     f"from float32 than the plain version "
+                                     f"and one bf16 step: {twin}")
+        if rr["RF"] <= 1.15 or rr["RP"] <= 1.15:
+            raise AssertionError(f"{cfg.name} {crit}: RF {rr['RF']}, RP "
+                                 f"{rr['RP']} (<= 1.15)")
+        out[crit] = rep
+        del pr, m2
+    del dense, pd, params, train_b, calib
+    torch.cuda.empty_cache()
+    return out
+
+
+def mini_path(name: str, rng, quick: bool, counts: dict) -> dict:
+    """One of the paper's encoders at its registered size (float32; K2's
+    CUDA-core instance): trained, and pruned at the paper's three times —
+    SNIP at init then trained, L1 after training then fine-tuned, OBSPA
+    with ID, OOD and DataFree calibration after training."""
+    cfg = get_config(name)
+    c = dict(MINI)
+    if quick:
+        cfg = reduced(cfg)
+        c.update(steps=60, ft_steps=10, lr=3e-3)
+    S = MINI_SEQ[name]
+    L = cfg.num_layers
+    model = build(cfg)
+    seeds = [int(x) for x in rng.integers(0, 2**31, 5)]
+    init = model.init(seed=seeds[0])
+    data = batches(cfg, "id", c["steps"] + 1, c["batch"], S, seed=seeds[1])
+    train_b, grad_b = data[:-1], data[-1]
+    evalb = batches(cfg, "eval", *c["evals"], S, seed=seeds[2])
+    out = {"model": name, "params": n_params(init), "seq": S, "config": c}
+    print(f"  model: {name}, {L} layers, d {cfg.d_model}, {cfg.n_heads} "
+          f"heads of {cfg.head_dim_}, {cfg.vocab_size} classes, "
+          f"{cfg.dtype}, {S} frames a sequence; {out['params']} parameters",
+          flush=True)
+
+    def report(label, m, p, pr=None, rep=None, dense_p=None) -> dict:
+        r = {"accuracy": encoder_accuracy(m, p, evalb)}
+        counts["k2"] += m.cfg.num_layers * len(evalb)
+        txt = f"accuracy {r['accuracy']:.4f}"
+        if pr is not None:
+            rr = rf_rp(model, dense_p, m, p, evalb[0])
+            r.update(rf=rr["RF"], rp=rr["RP"], dims=pruned_dims(pr.cfg),
+                     **rep)
+            txt += (f" | RF {rr['RF']:.3f} RP {rr['RP']:.3f} | "
+                    f"{rep['wall_s']:.2f}s: " + " | ".join(
+                        f"{k} {v:.3f}s" for k, v in rep["seconds"].items())
+                    + f" | {r['dims']}")
+            if "k4_launches" in rep:
+                txt += (f" | K4 launches {rep['k4_launches']} (formula "
+                        f"{rep['k4_expected']})")
+            if rr["RF"] <= 1.15 or rr["RP"] <= 1.15:
+                raise AssertionError(f"{name} {label}: RF {rr['RF']}, RP "
+                                     f"{rr['RP']} (<= 1.15)")
+        print(f"  {label:32s} {txt}", flush=True)
+        return r
+
+    out["dense_init"] = report("dense at init", model, init)
+    pr, rep = timed_prune(model, init, "snip", grads_batch=grad_b)
+    r = {"after_prune": report("prune-train: SNIP at init", build(pr.cfg),
+                               pr.params, pr, rep, init)}
+    p_pt, r["train"] = train(Warm(pr.cfg, pr.params), train_b, c["lr"])
+    r["after_train"] = report("prune-train: trained", build(pr.cfg), p_pt)
+    out["prune_train"] = r
+    del pr, p_pt
+    dense, out["dense_train"] = train(Warm(cfg, init), train_b, c["lr"])
+    out["dense_trained"] = report("dense trained", model, dense)
+    d = out["dense_train"]
+    print(f"  dense training: {d['steps']} steps of {c['batch']} x {S} at lr "
+          f"{c['lr']:g}, median step {d['step_ms_median']:.1f} ms "
+          f"({d['frames_per_s']:.0f} frames/s), loss "
+          f"{d['train_loss_first']:.4f} -> {d['train_loss_last']:.4f} (mean "
+          f"of the first and last quarter of the steps "
+          f"{d['train_loss_first_quarter']:.4f} -> "
+          f"{d['train_loss_last_quarter']:.4f}), peak "
+          f"{d['peak_mem_bytes'] / 2**30:.2f} GiB", flush=True)
+    # judged on the held-out sequences: on these small tasks a batch's loss
+    # moves more from batch to batch than training moves it
+    if not out["dense_trained"]["accuracy"] > out["dense_init"]["accuracy"]:
+        raise AssertionError(f"{name}: training did not raise the accuracy "
+                             f"on the eval sequences")
+    pr, rep = timed_prune(model, dense, "l1")
+    r = {"after_prune": report("train-prune: L1", build(pr.cfg), pr.params,
+                               pr, rep, dense)}
+    p_ft, r["finetune"] = train(Warm(pr.cfg, pr.params),
+                                train_b[:c["ft_steps"]], c["lr"])
+    r["after_finetune"] = report("train-prune-finetune: tuned",
+                                 build(pr.cfg), p_ft)
+    out["train_prune_l1"] = r
+    del pr, p_ft
+    for mode in ("id", "ood", "datafree"):
+        calib = batches(cfg, mode, *c["calib"], S, seed=seeds[3])
+        pr, rep = obspa_on_card(model, dense, calib, calib_mode=mode)
+        rep["k4_expected"] = obspa_blocks(cfg)
+        counts["k4"] += rep["k4_expected"]
+        r = report(f"train-prune: OBSPA ({mode})", build(pr.cfg), pr.params,
+                   pr, rep, dense)
+        print(f"    {errors_text(rep)}", flush=True)
+        check_obspa_errors(f"{name} OBSPA ({mode})", rep, mode)
+        if rep["k4_launches"] != rep["k4_expected"]:
+            raise AssertionError(f"{name} OBSPA ({mode}): K4 launches "
+                                 f"{rep['k4_launches']} != "
+                                 f"{rep['k4_expected']}")
+        out[f"train_prune_obspa_{mode}"] = r
+        del pr, calib
+    del dense, init, data, train_b
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefix_check(model, params, batch) -> dict:
+    """The vlm mask on the card (``tests/test_models.py::
+    test_vlm_prefix_mask``): changing the last text token moves no logit
+    before it; changing the last image patch moves the first image row's
+    (image rows see every image row)."""
+    def logits(b):
+        with torch.no_grad():
+            return model.forward(params, b).float()
+    base = logits(batch)
+    toks = batch["tokens"].clone()
+    toks[:, -1] = (toks[:, -1] + 1) % model.cfg.vocab_size
+    moved_text = logits(dict(batch, tokens=toks))
+    patches = batch["patches"].clone()
+    patches[:, -1] = -patches[:, -1]
+    moved_image = logits(dict(batch, patches=patches))
+    top = float(base.abs().max())
+    return {"max_abs_logit": top,
+            "before_last_text_moved": float(
+                (moved_text[:, :-1] - base[:, :-1]).abs().max()),
+            "last_text_moved": float(
+                (moved_text[:, -1] - base[:, -1]).abs().max()),
+            "first_image_row_moved": float(
+                (moved_image[:, 0] - base[:, 0]).abs().max())}
+
+
+def paligemma_path(rng, quick: bool, counts: dict) -> dict:
+    """paligemma-3b at full width (18 layers, d 2048, 8 query heads over one
+    KV head of 256, d_ff 16384, 256 patches of 1152, vocab 257216, tied
+    embeddings, bf16): the prefix mask on the plain attention (K2 never),
+    its property on the card, a few ``Trainer`` steps, L1 and OBSPA
+    DataFree at 0.5, and the engine's refusal."""
+    cfg = get_config("paligemma-3b")
+    c = dict(PALIGEMMA)
+    if quick:
+        cfg = reduced(cfg).replace(dtype=cfg.dtype, remat=cfg.remat)
+        c.update(text=16)
+    model = build(cfg)
+    L, nv = cfg.num_layers, cfg.vision_tokens
+    seq = nv + c["text"]
+    seeds = [int(x) for x in rng.integers(0, 2**31, 5)]
+    params = model.init(seed=seeds[0])
+    out = {"model": cfg.name, "layers": L, "params": n_params(params),
+           "param_count": cfg.param_count(), "config": c}
+    print(f"  model: {cfg.name}, {L} layers, d {cfg.d_model}, "
+          f"{cfg.n_heads} query heads over {cfg.n_kv_heads} KV head of "
+          f"{cfg.head_dim_}, d_ff {cfg.d_ff}, {nv} patches of "
+          f"{cfg.vision_embed_dim} + {c['text']} text tokens, vocab "
+          f"{cfg.vocab_size} (tied), {cfg.dtype}; {out['params']} "
+          f"parameters (config's count {out['param_count']})", flush=True)
+    if out["params"] != out["param_count"]:
+        raise AssertionError(f"{cfg.name}: {out['params']} parameters held, "
+                             f"the config counts {out['param_count']}")
+    k2_before = k2.launch_count()
+    one = batches(cfg, "datafree", 1, 1, seq, seed=seeds[1])[0]
+    pre = prefix_check(model, params, one)
+    out["prefix"] = pre
+    # the plain attention's share of a no-grad forward: the 18 prefix-masked
+    # attentions alone on one layer's input, against the whole forward
+    b2 = batches(cfg, "datafree", 1, c["batch"], seq, seed=seeds[2])[0]
+    pos = torch.arange(seq, dtype=torch.int32, device=DEV)[None].expand(
+        c["batch"], seq)
+    layers = tf.unstack_layers(params, L)["layers"]
+    with torch.no_grad():
+        hn = rms_norm(tf.embed_inputs(params, cfg, b2), layers[0]["ln1"],
+                      cfg.norm_eps)
+        fwd_ms = time_ms(lambda i: model.forward(params, b2), iters=3,
+                         warmup=1)
+        attn_ms = time_ms(lambda i: [attn_block(
+            lp["attn"], cfg, hn, pos, "prefix", prefix_len=nv)
+            for lp in layers], iters=3, warmup=1)
+    out["forward_ms"], out["attention_ms"] = fwd_ms, attn_ms
+    print(f"  prefix mask on the plain attention: changing the last text "
+          f"token moves the logits before it by "
+          f"{pre['before_last_text_moved']:.3e} (limit {PREFIX_TOL:g} x "
+          f"max|logit| {pre['max_abs_logit']:.3f}) and its own by "
+          f"{pre['last_text_moved']:.3f}; flipping the last patch moves "
+          f"the first image row by {pre['first_image_row_moved']:.3f} | "
+          f"no-grad forward of {c['batch']} x {seq} {fwd_ms:.2f} ms, its "
+          f"{L} plain attentions {attn_ms:.2f} ms "
+          f"({100 * attn_ms / fwd_ms:.1f} %)", flush=True)
+    if pre["before_last_text_moved"] > PREFIX_TOL * pre["max_abs_logit"] \
+            or not pre["last_text_moved"] > 0 \
+            or not pre["first_image_row_moved"] > 0:
+        raise AssertionError(f"{cfg.name}: prefix mask {pre}")
+
+    train_b = batches(cfg, "datafree", c["steps"], c["batch"], seq,
+                      seed=seeds[3])
+    dense, tr = train(Warm(cfg, params), train_b, c["lr"])
+    out["train"] = tr
+    print(f"  {tr['steps']} Trainer steps of {c['batch']} x ({nv} patches + "
+          f"{c['text']} tokens), loss on the text positions only, lr "
+          f"{c['lr']:g} (remat {cfg.remat}): median step "
+          f"{tr['step_ms_median']:.1f} ms (first {tr['first_step_ms']:.0f} "
+          f"ms), loss {tr['train_loss_first']:.4f} -> "
+          f"{tr['train_loss_last']:.4f} (ln vocab "
+          f"{math.log(cfg.vocab_size):.4f}), peak "
+          f"{tr['peak_mem_bytes'] / 2**30:.2f} GiB", flush=True)
+    evalb = [b2]
+    out["dense_loss"] = eval_loss(model, dense, evalb)
+    calib = batches(cfg, "datafree", *c["calib"], seq, seed=seeds[4])
+    for crit in ("l1", "obspa"):
+        if crit == "l1":
+            pr, rep = timed_prune(model, dense, "l1")
+        else:
+            pr, rep = obspa_on_card(model, dense, calib,
+                                    calib_mode="datafree")
+            rep["k4_expected"] = obspa_blocks(cfg)
+            counts["k4"] += rep["k4_expected"]
+        m2 = build(pr.cfg)
+        rr = rf_rp(model, dense, m2, pr.params, b2)
+        rep.update(rf=rr["RF"], rp=rr["RP"], dims=pruned_dims(pr.cfg),
+                   loss=eval_loss(m2, pr.params, evalb))
+        print_prune(f"{crit} (datafree)" if crit == "obspa" else crit,
+                    pruned_dims(cfg), rep["dims"], rep)
+        print(f"    RF {rr['RF']:.3f} RP {rr['RP']:.3f} | loss on DataFree "
+              f"tokens {out['dense_loss']:.4f} -> {rep['loss']:.4f}"
+              + (f" | K4 launches {rep['k4_launches']} (formula {L} x "
+                 f"(⌈{cfg.n_heads * cfg.v_head_dim_}/128⌉ + "
+                 f"⌈{cfg.d_ff}/128⌉) = {rep['k4_expected']})"
+                 if crit == "obspa" else ""), flush=True)
+        if crit == "obspa":
+            print(f"    {errors_text(rep)}", flush=True)
+            if rep["k4_launches"] != rep["k4_expected"]:
+                raise AssertionError(f"{cfg.name} OBSPA: K4 launches "
+                                     f"{rep['k4_launches']} != "
+                                     f"{rep['k4_expected']}")
+        if not math.isfinite(rep["loss"]) or rr["RP"] <= 1.15:
+            raise AssertionError(f"{cfg.name} {crit}: loss {rep['loss']}, "
+                                 f"RP {rr['RP']}")
+        out[crit] = rep
+        del pr, m2
+    try:
+        Engine(model, dense, ServeConfig())
+    except ValueError as e:
+        out["engine_refusal"] = str(e)
+    else:
+        raise AssertionError(f"{cfg.name}: the engine took a vlm model")
+    print(f"  Engine refuses it: {out['engine_refusal']!r}", flush=True)
+    if out["engine_refusal"] != "vlm serving needs patch prefill (not " \
+            "supported)":
+        raise AssertionError(f"{cfg.name}: engine refusal "
+                             f"{out['engine_refusal']!r}")
+    out["k2_launches"] = k2.launch_count() - k2_before
+    print(f"  K2 launches on the paligemma path: {out['k2_launches']} "
+          f"(prefix attention runs the plain version, as the reference's)",
+          flush=True)
+    if out["k2_launches"]:
+        raise AssertionError(f"{cfg.name}: K2 launched "
+                             f"{out['k2_launches']} times on a prefix mask")
+    del dense, params, train_b, calib, layers, hn
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_encoder_vlm_path(seed: int, quick: bool) -> dict:
+    print("phase 15: the encoder and VLM families — hubert-xlarge, "
+          "vit-mini, distilbert-mini and paligemma-3b trained, pruned and "
+          "evaluated (K2 bidirectional, K4)", flush=True)
+    rng = np.random.default_rng([seed, 15, 1])
+    t0 = time.time()
+    k2.reset_launches()                 # counts = this path's only
+    k4.reset_launches()
+    counts = {"k2": 0, "k4": 0}
+    res: dict = {"models": {}}
+    res["models"]["hubert-xlarge"] = hubert_path(rng, quick, counts)
+    res["hubert_s"] = time.time() - t0
+    for name in MINI_SEQ:
+        res["models"][name] = mini_path(name, rng, quick, counts)
+    res["minis_s"] = time.time() - t0 - res["hubert_s"]
+    res["models"]["paligemma-3b"] = paligemma_path(rng, quick, counts)
+    torch.cuda.synchronize()
+    res["launches"] = {"k2": k2.launch_count(), "k2_expected": counts["k2"],
+                       "k4": k4.launch_count(), "k4_expected": counts["k4"]}
+    res["wall_s"] = time.time() - t0
+    la = res["launches"]
+    print(f"  encoder / vlm path {res['wall_s']:.2f}s wall (hubert "
+          f"{res['hubert_s']:.1f}s, minis {res['minis_s']:.1f}s); K2 "
+          f"launches {la['k2']} (one a layer of every encoder forward on "
+          f"the card: {la['k2_expected']}), K4 launches {la['k4']} (the "
+          f"sum of ⌈K/128⌉ over the swept consumers: {la['k4_expected']})",
+          flush=True)
+    if la["k2"] != la["k2_expected"] or la["k4"] != la["k4_expected"] \
+            or la["k2"] < 1 or la["k4"] < 1:
+        raise AssertionError(f"encoder / vlm path launches {la}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="cut phases 4, 7, 9, 11, 12 and 13 to 4 layers and "
-                         "a few requests or steps, and phase 14 to "
-                         "resnet18-cifar and vgg19-cifar at 10 steps")
+                         "a few requests or steps, phase 14 to "
+                         "resnet18-cifar and vgg19-cifar at 10 steps, and "
+                         "phase 15 to its reduced configs")
     ap.add_argument("--profile", action="store_true",
                     help="also trace one decode and one prefill step with "
                          "torch.profiler: device busy share, top kernels")
@@ -4265,6 +4893,7 @@ def main() -> int:
         raise AssertionError(f"K3 / K4 instances spill registers: {spilled}")
     moe_instances = {"K1": path_instances(k1_build, "K1"),
                      "K2": path_instances(k2_build, "K2")}
+    hubert_instances = path_instances(k2_build, "K2", "hubert-xlarge")
 
     phase_s: dict[str, float] = {}
     t_lap = [t_start]
@@ -4323,11 +4952,13 @@ def main() -> int:
     k3_entry["max_rel_err"] = k3_rel
     k3_entry["build"] = build_summary(k3_build)
     kernels.append(k3_entry)
-    k2_err = phase_k2_checks()
+    k2_err, k2_hubert_err = phase_k2_checks()
     print("phase 10b: K2 time at the main path's shape", flush=True)
     k2_entry = time_k2()
     k2_entry["build"] = build_summary(k2_build)
     k2_moe = time_k2(shape=K2_MOE)
+    k2_hubert = time_k2(shape=K2_HUBERT)
+    k2_hubert["max_abs_err"] = max(k2_hubert["max_abs_err"], k2_hubert_err)
     lap("phases 10-10b")
     any_res = phase_any_time(args.quick, args.seed)
     lap("phase 11")
@@ -4360,16 +4991,23 @@ def main() -> int:
     cnn_res = phase_cnn_path(args.seed, args.quick)
     lap("phase 14")
     k4_entry["launches_cnn"] = cnn_res["k4_launches"]
+    # phase 15 draws its data from a generator of its own
+    enc_res = phase_encoder_vlm_path(args.seed, args.quick)
+    lap("phase 15")
+    k2_entry["launches_encoder_vlm"] = enc_res["launches"]["k2"]
+    k4_entry["launches_encoder_vlm"] = enc_res["launches"]["k4"]
+    timed_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                  "library_gqa_ms", "device_ms", "share_of_bound",
+                  "max_abs_err", "instance", "shape", "bytes", "flops")
     for entry, timed in ((kernels[0], k1_moe[0]), (kernels[1], k1_moe[1]),
                          (k2_entry, k2_moe)):
-        entry["qwen2_moe"] = {
-            key: timed.get(key) for key in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "library_gqa_ms", "device_ms", "share_of_bound",
-                "max_abs_err", "instance", "shape", "bytes", "flops")}
+        entry["qwen2_moe"] = {key: timed.get(key) for key in timed_keys}
+    k2_entry["hubert_xlarge"] = {key: k2_hubert.get(key)
+                                 for key in timed_keys}
     for label, ks in moe_instances.items():
         entry = kernels[0] if label == "K1" else k2_entry
         entry["qwen2_moe_instances"] = ks
+    k2_entry["hubert_xlarge_instances"] = hubert_instances
     for k in kernels:
         if k["launches"] < 1:
             raise AssertionError(f"{k['name']} was never launched by its "
@@ -4387,6 +5025,7 @@ def main() -> int:
     print(json.dumps({"hybrid_path": hybrid_res}))
     print(json.dumps({"moe_path": moe_res}))
     print(json.dumps({"cnn_path": cnn_res}))
+    print(json.dumps({"encoder_vlm_path": enc_res}))
     print(json.dumps({"phase_seconds": phase_s}))
     print(f"total {time.time() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,10 @@ and the dtypes are kept — for the SSM leaves too: ``w_x``/``w_z``
 ``(L, d, nh, hp)``, ``w_out`` ``(L, nh, hp, d)``, and ``A_log``, ``D``,
 ``dt_bias`` in f32 whatever the model dtype; and for the MoE leaves:
 ``moe.router`` ``(L, d, E)`` and ``moe.shared.gate`` ``(L, d, 1)`` in f32,
-``w_gate`` / ``w_up`` ``(L, E, d, f)``, ``w_down`` ``(L, E, f, d)``.
+``w_gate`` / ``w_up`` ``(L, E, d, f)``, ``w_down`` ``(L, E, f, d)``; and
+for the front ends: the audio family's ``frame_proj`` ``(512, d)`` (no
+``tok_embed``), the vlm family's ``vision_proj`` ``(vision_embed_dim, d)``
+and an encoder's classifier ``head`` ``(d, vocab)``.
 """
 from __future__ import annotations
 

@@ -14,8 +14,9 @@ channels the group removes) get:
 Producer weights (whose *output* channels die) are simply sliced; a group
 with no product consumer falls back to magnitude scoring with no
 reconstruction, as in the reference.  The consumers are found on the ATen
-graph of every ported family: ``attn.wo`` and ``mlp.w_down`` (dense and
-hybrid), the SSD block's ``ssm.w_out`` over its heads and head_dim (ssm
+graph of every family: ``attn.wo`` and ``mlp.w_down`` (dense, hybrid,
+and the audio and vlm families, calibrated on frames or on patches and
+tokens), the SSD block's ``ssm.w_out`` over its heads and head_dim (ssm
 and hybrid), and for the moe family the experts' ``moe.w_down`` ``(E, f,
 d)`` (the expert axis a batch axis of its product: one Hessian per expert
 from the rows dispatched to it, capacity padding included, as the
@@ -360,18 +361,6 @@ def reconstruct(ap, groups: list[Group], pruned: dict[str, list[int]],
 # Top level
 # ---------------------------------------------------------------------------
 
-OBSPA_FAMILIES = ("dense", "moe", "ssm", "hybrid", "cnn")
-
-
-def require_obspa_family(cfg) -> None:
-    """OBSPA is ported for the dense, moe, ssm, hybrid and cnn families;
-    the others wait for their ROADMAP.md item."""
-    if cfg.family not in OBSPA_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: OBSPA for the {cfg.family!r} family is not ported "
-            f"yet — ROADMAP.md Queue 1 item 14 (audio, VLM)")
-
-
 def obspa_prune(model, params, ratio: float, calib_batches: list,
                 calib_mode: str = "id", mode: str | None = None,
                 recalibrate: bool = True) -> PruneResult:
@@ -384,7 +373,6 @@ def obspa_prune(model, params, ratio: float, calib_batches: list,
     ``report["seconds"]`` holds the time of each phase (trace, group,
     hessians, inverse, score, sweep, slice, and recalibrate for a CNN)."""
     cfg = model.cfg
-    require_obspa_family(cfg)
     mode = mode or default_mode(cfg)
     clock = PhaseClock(tree_paths(params)[0][1].device)
     # trace at the calibration batch's shapes: the graph interpreter replays
@@ -467,7 +455,6 @@ def layer_output_errors(model, params, result: PruneResult,
     so the two differ only where OBSPA reconstructed.  X are the dense
     model's activations, which is what OBSPA's Hessian sees.
     Returns {"path@op": (obspa error, plain-slicing error)}."""
-    require_obspa_family(model.cfg)
     graph, ap = trace_model(model, params, batch=calib_batches[0])
     consumers = find_consumers(graph, result.groups)
     H, count = hessian_sums(graph, ap, calib_batches, consumers)

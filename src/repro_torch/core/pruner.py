@@ -13,7 +13,7 @@ Two selection modes, as in the reference:
               for the cnn family, whose layers need not stay uniform
 ``align_units`` keeps its reference meaning and default (1: no rounding).
 
-The dense, moe, ssm, hybrid and cnn families are ported.  A CNN's
+Every family of the reference is ported.  A CNN's
 ``{"params", "state"}`` tree is traced as it is (no layer stack), so the
 BatchNorm running statistics are parameters of the trace and are sliced
 with their channels.  For the moe family the groups found by propagation
@@ -75,11 +75,14 @@ class PhaseClock:
 # ---------------------------------------------------------------------------
 
 def analysis_seq(cfg: ArchConfig) -> int:
-    """Tokens of the analysis trace: 8, or more to fill one SSM chunk or to
-    reach a sliding window."""
+    """Tokens of the analysis trace: 8, or more to fill one SSM chunk, to
+    leave 8 text tokens after a vlm's image prefix, or to reach a sliding
+    window."""
     s = 8
     if cfg.ssm_state:
         s = max(s, cfg.ssm_chunk)
+    if cfg.family == "vlm":
+        s = max(s, cfg.vision_tokens + 8)
     if cfg.sliding_window:
         s = max(s, min(cfg.sliding_window, 32))
     return s

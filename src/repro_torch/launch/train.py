@@ -6,6 +6,9 @@
       --reduced --steps 100 --prune-ratio 0.5 --prune-at 50   # prune mid-run
   PYTHONPATH=src python -m repro_torch.launch.train --arch resnet18-cifar \
       --reduced --steps 4 --prune-ratio 0.5 --prune-at 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch vit-mini \
+      --reduced --steps 4 --seq 16 --prune-ratio 0.5 --prune-at 2 \
+      --device cpu          # encoders train on FrameTask frames
 
 Runs on the CUDA device; ``--device cpu`` asks for the CPU explicitly.  The
 supervisor restarts from the newest valid checkpoint on failure

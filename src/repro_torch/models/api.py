@@ -1,6 +1,7 @@
 """Model facade: one object per ArchConfig binding the pure functions of
 ``models/transformer.py``, or of ``models/cnn.py`` for the cnn family
-(``{"params", "state"}`` trees; no decode path).  ``init`` and the cache
+(``{"params", "state"}`` trees).  Encoders, the vlm family and CNNs have
+no decode path (``serve.Engine`` refuses them).  ``init`` and the cache
 constructors take an explicit ``device``; ``None`` means the CUDA device and
 raises when there is none (ask for ``device="cpu"`` explicitly)."""
 from __future__ import annotations
@@ -10,10 +11,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import AUDIO_FRAME_DIM, ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import cnn as cnn_mod
 from repro_torch.models import transformer as tf
+from repro_torch.models.layers import dtype_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,21 +92,40 @@ class Model:
     # ----- concrete dummy data (analysis traces, smoke tests) -----
     def dummy_batch(self, batch: int, seq: int, seed: int = 0,
                     device=None) -> dict:
-        """Seeded random tokens ``(batch, seq)`` int32 — for a CNN, images
-        ``(batch, size, size, 3)`` f32 and labels ``(batch,)`` int32 (``seq``
-        unused) — drawn with numpy so that every device sees the same
-        values."""
+        """Seeded random inputs in the reference's shapes, drawn with numpy
+        so that every device sees the same values: tokens ``(batch, seq)``
+        int32; for the audio family frames ``(batch, seq,
+        AUDIO_FRAME_DIM)`` in the model's dtype and targets ``(batch,)``
+        (at most 16 classes) or ``(batch, seq)``; for the vlm family
+        patches ``(batch, vision_tokens, vision_embed_dim)`` and tokens
+        ``(batch, max(seq - vision_tokens, 4))``; for a CNN images
+        ``(batch, size, size, 3)`` f32 and labels ``(batch,)`` int32
+        (``seq`` unused)."""
+        cfg = self.cfg
         rng = np.random.default_rng(seed)
         dev = resolve_device(device)
-        if self.cfg.family == "cnn":
-            s = self.cfg.image_size
+        T = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        dt = dtype_of(cfg.dtype)
+        if cfg.family == "cnn":
+            s = cfg.image_size
             imgs = rng.standard_normal((batch, s, s, 3)).astype(np.float32)
-            labels = rng.integers(0, self.cfg.num_classes, batch)
-            return {"images": torch.from_numpy(imgs).to(dev),
-                    "labels": torch.from_numpy(
-                        labels.astype(np.int32)).to(dev)}
-        toks = rng.integers(0, self.cfg.vocab_size, size=(batch, seq))
-        return {"tokens": torch.from_numpy(toks.astype(np.int32)).to(dev)}
+            labels = rng.integers(0, cfg.num_classes, batch)
+            return {"images": T(imgs), "labels": T(labels.astype(np.int32))}
+        if cfg.family == "audio":
+            frames = rng.standard_normal((batch, seq, AUDIO_FRAME_DIM))
+            shape = (batch,) if cfg.vocab_size <= 16 else (batch, seq)
+            targets = rng.integers(0, cfg.vocab_size, shape)
+            return {"frames": T(frames.astype(np.float32)).to(dt),
+                    "targets": T(targets.astype(np.int32))}
+        out = {}
+        if cfg.family == "vlm":
+            nv = cfg.vision_tokens
+            patches = rng.standard_normal((batch, nv, cfg.vision_embed_dim))
+            out["patches"] = T(patches.astype(np.float32)).to(dt)
+            seq = max(seq - nv, 4)
+        toks = rng.integers(0, cfg.vocab_size, size=(batch, seq))
+        out["tokens"] = T(toks.astype(np.int32))
+        return out
 
 
 def build(cfg: ArchConfig) -> Model:

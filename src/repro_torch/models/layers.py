@@ -51,6 +51,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
     return (normed * scale.float()).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm with f32 statistics (the population variance, as
+    ``jnp.var``); returns x.dtype.  No model of the reference calls it."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    normed = (xf - mu) * torch.rsqrt(var + eps)
+    return (normed * scale + bias).to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

@@ -1,9 +1,13 @@
 """Transformer backbone of the port: the dense family (GQA attention +
 SwiGLU), the moe family (GQA attention + routed experts, with shared
 experts for qwen2-moe), the ssm family (Mamba-2: SSD blocks only, no
-attention and no separate FFN) and the hybrid family (Hymba: attention and
-SSD heads in parallel on the same normed input, then SwiGLU), as the
-reference's ``models/transformer.py`` runs them.
+attention and no separate FFN), the hybrid family (Hymba: attention and
+SSD heads in parallel on the same normed input, then SwiGLU), the audio
+family (encoders: HuBERT, and the paper's vit-mini / distilbert-mini —
+stub frame embeddings in through ``frame_proj``, bidirectional attention,
+an untied ``head``) and the vlm family (PaliGemma: stub patch embeddings
+through ``vision_proj`` prepended to the token embeddings, a prefix-LM
+mask), as the reference's ``models/transformer.py`` runs them.
 
 Parameters are a nested dict of tensors with the reference's key paths;
 ``params["layers"]`` holds every per-layer leaf stacked on a leading
@@ -13,8 +17,9 @@ window is a static int (``layer_window``): ``cfg.sliding_window`` on the
 windowed layers, 0 (plain causal) on ``cfg.global_layers``.  The reference
 makes it data (``2**30`` on global layers) only because it scans its
 layers.  The cnn family runs in ``models/cnn.py`` (``require_ported``
-admits it for the port's entry points); the vlm and audio families raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
+admits it for the port's entry points).  Encoders and the vlm family have
+no decode path, as in the reference: the serving steps below run the
+causal families only.
 
 The moe family's layers return the router's load-balancing loss beside the
 hidden states; ``forward`` sums it over the layers and ``loss_fn`` adds it
@@ -33,7 +38,7 @@ from typing import Any
 import torch
 import torch.utils.checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import AUDIO_FRAME_DIM, ArchConfig
 from repro_torch.kernels.paged_attention import is_quantized, pool_dtype
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -42,23 +47,22 @@ from repro_torch.models.layers import (
     cross_entropy, dense_init, dtype_of, embed_init, rms_norm, swiglu,
     swiglu_init)
 
-_LATER = {
-    "vlm": "Queue 1 item 14 (audio, VLM)",
-    "audio": "Queue 1 item 14 (audio, VLM)",
-}
-PORTED = ("dense", "moe", "ssm", "hybrid", "cnn")
+PORTED = ("dense", "moe", "ssm", "hybrid", "cnn", "audio", "vlm")
 
 
 def require_ported(cfg: ArchConfig) -> None:
-    """Admit the ported families (dense, moe, ssm, hybrid, and cnn, which
-    ``models/cnn.py`` runs); the others raise naming the ROADMAP.md item
-    that brings them."""
+    """Admit the families the reference registers (dense, moe, ssm,
+    hybrid, audio, vlm, and cnn, which ``models/cnn.py`` runs) in the
+    combinations its configs use: experts only in the moe family, the
+    parallel SSD heads only in the hybrid one, and ``is_encoder`` only in
+    the audio one."""
     if cfg.family not in PORTED or cfg.hybrid != (cfg.family == "hybrid") \
             or bool(cfg.n_experts) != (cfg.family == "moe") \
-            or cfg.is_encoder:
+            or cfg.is_encoder != (cfg.family == "audio"):
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet — "
-            f"ROADMAP.md {_LATER.get(cfg.family, 'Queue 1')}")
+            f"{cfg.name}: the port has no model of family {cfg.family!r} "
+            f"(hybrid={cfg.hybrid}, n_experts={cfg.n_experts}, "
+            f"is_encoder={cfg.is_encoder})")
 
 
 def _tree_map(fn, tree):
@@ -132,15 +136,27 @@ def _tree_map2(fn, a, b):
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
-    """Random parameters drawn from ``gen`` on ``gen.device``."""
+    """Random parameters drawn from ``gen`` on ``gen.device``: the audio
+    family's ``frame_proj (AUDIO_FRAME_DIM, d)`` in place of
+    ``tok_embed``, the vlm family's ``vision_proj (vision_embed_dim, d)``
+    beside it, and an encoder's classifier ``head (d, vocab)`` whatever
+    ``tie_embeddings`` says."""
     require_ported(cfg)
     dt = dtype_of(cfg.dtype)
     params: dict[str, Any] = {}
-    params["tok_embed"] = embed_init(gen, (cfg.vocab_size, cfg.d_model), dt)
+    if cfg.family == "audio":
+        params["frame_proj"] = dense_init(
+            gen, (AUDIO_FRAME_DIM, cfg.d_model), dt)
+    else:
+        params["tok_embed"] = embed_init(
+            gen, (cfg.vocab_size, cfg.d_model), dt)
+    if cfg.family == "vlm":
+        params["vision_proj"] = dense_init(
+            gen, (cfg.vision_embed_dim, cfg.d_model), dt)
     params["layers"] = _stacked_layers(gen, cfg)
     params["final_norm"] = torch.ones((cfg.d_model,), dtype=dt,
                                       device=gen.device)
-    if not cfg.tie_embeddings:
+    if cfg.is_encoder or not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
     return params
 
@@ -165,6 +181,17 @@ def _ffn(lp: dict, cfg: ArchConfig, h: torch.Tensor, moe_mask=None
     return h, None
 
 
+def mask_mode(cfg: ArchConfig) -> str:
+    """The full-sequence attention mask of a config: ``bidir`` for an
+    encoder, ``prefix`` (bidirectional over the image tokens, causal after)
+    for the vlm family, else ``causal``."""
+    if cfg.is_encoder:
+        return "bidir"
+    if cfg.family == "vlm":
+        return "prefix"
+    return "causal"
+
+
 def layer_forward(lp: dict, cfg: ArchConfig, x: torch.Tensor,
                   positions: torch.Tensor, window: int = 0
                   ) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -174,13 +201,30 @@ def layer_forward(lp: dict, cfg: ArchConfig, x: torch.Tensor,
     if cfg.family == "ssm":
         return x + ssm_mod.ssm_block(lp["ssm"], cfg, h), None
     a_out = attn.attention_block(lp["attn"], cfg, h, positions,
-                                 "sliding" if window else "causal",
-                                 window=window)
+                                 "sliding" if window else mask_mode(cfg),
+                                 window=window, prefix_len=cfg.vision_tokens)
     if cfg.hybrid:
         x = x + a_out + ssm_mod.ssm_block(lp["ssm"], cfg, h)
     else:
         x = x + a_out
     return _ffn(lp, cfg, x)
+
+
+def embed_inputs(params: dict, cfg: ArchConfig, batch: dict
+                 ) -> torch.Tensor:
+    """(B, S, d) inputs of the first layer: ``frames @ frame_proj`` for the
+    audio family (frames cast to the model's dtype first), else the token
+    embeddings, with the vlm family's ``patches @ vision_proj`` prepended
+    (S = vision_tokens + text tokens)."""
+    if cfg.family == "audio":
+        fp = params["frame_proj"]
+        h = batch["frames"].to(fp.dtype) @ fp
+    else:
+        h = params["tok_embed"][batch["tokens"].long()]
+    if cfg.family == "vlm":
+        vis = batch["patches"].to(h.dtype) @ params["vision_proj"]
+        h = torch.cat([vis, h], dim=1)
+    return h
 
 
 def forward(params: dict, cfg: ArchConfig, batch: dict
@@ -198,8 +242,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict
     ``torch.autograd`` (the trainer's); ``torch.func`` transforms refuse
     it, so their callers pass ``remat=False``."""
     require_ported(cfg)
-    tokens = batch["tokens"]
-    h = params["tok_embed"][tokens.long()]
+    h = embed_inputs(params, cfg, batch)
     B, S, _ = h.shape
     positions = torch.arange(S, dtype=torch.int32, device=h.device
                              )[None].expand(B, S)
@@ -221,16 +264,31 @@ def forward(params: dict, cfg: ArchConfig, batch: dict
 
 
 def logits_from_hidden(params, cfg, h) -> torch.Tensor:
-    if not cfg.tie_embeddings:
+    if cfg.is_encoder or not cfg.tie_embeddings:
         return torch.einsum("bsd,dv->bsv", h, params["head"])
     return torch.einsum("bsd,vd->bsv", h, params["tok_embed"])
 
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict
             ) -> tuple[torch.Tensor, dict]:
+    """(CE + the MoE aux loss, metrics).  An encoder with at most 16
+    classes classifies the sequence from its mean hidden state (targets
+    (B,)); other encoders predict a target per frame (targets (B, S)); a
+    decoder predicts the next token, for the vlm family on the text
+    positions only."""
     h, aux = forward(params, cfg, batch)
-    logits = logits_from_hidden(params, cfg, h)
-    ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
+    if cfg.is_encoder:
+        if cfg.vocab_size <= 16:
+            ce = cross_entropy(h.mean(dim=1) @ params["head"],
+                               batch["targets"])
+        else:
+            ce = cross_entropy(logits_from_hidden(params, cfg, h),
+                               batch["targets"])
+    else:
+        logits = logits_from_hidden(params, cfg, h)
+        if cfg.family == "vlm":
+            logits = logits[:, cfg.vision_tokens:]
+        ce = cross_entropy(logits[:, :-1], batch["tokens"][:, 1:])
     return ce + aux, {"ce": ce, "aux": aux}
 
 

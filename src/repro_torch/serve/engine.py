@@ -128,6 +128,8 @@ class Engine:
                  device=None):
         if not model.cfg.has_decode:
             raise ValueError(f"{model.cfg.name} has no decode path")
+        if model.cfg.family == "vlm":
+            raise ValueError("vlm serving needs patch prefill (not supported)")
         self.device = resolve_device(device)
         leaf = _first_leaf(params)
         if leaf.device.type != self.device.type:

@@ -243,29 +243,30 @@ def test_stack_unstack_roundtrip_and_unrolled_forward():
 def test_other_families_raise_naming_the_roadmap(name):
     from repro_torch.configs import get_config, reduced
     cfg = reduced(get_config(name))
-    if cfg.family in ("moe", "ssm", "hybrid"):
-        # the moe, ssm and hybrid families are ported whole (model,
-        # serving, magnitude and OBSPA pruning; tests/test_torch_moe*.py,
-        # test_torch_ssm*.py, test_torch_hybrid.py,
-        # test_torch_obspa_ssm.py): the model builds and OBSPA prunes it on
-        # reduced data
-        from repro_torch.core.obspa import obspa_prune
-        from repro_torch.data.synthetic import batches
-        m = t_build(cfg)
-        calib = batches(cfg, "datafree", 1, 2, 40, seed=5, device="cpu")
-        res = obspa_prune(m, m.init(device="cpu"), 0.5, calib,
-                          calib_mode="datafree")
-        if cfg.family == "moe":
-            assert res.cfg.n_experts == cfg.n_experts // 2
-        else:
-            assert res.cfg.ssm_n_heads == cfg.ssm_n_heads // 2
-        assert res.report["groups_with_obs"] > 0
-        with torch.no_grad():
-            out = t_build(res.cfg).forward(res.params, calib[0])
-        assert torch.isfinite(out).all()
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        t_build(cfg)
+    # every family is ported whole (model, magnitude and OBSPA pruning;
+    # serving for the decoders; tests/test_torch_moe*.py,
+    # test_torch_ssm*.py, test_torch_hybrid.py, test_torch_obspa_ssm.py,
+    # test_torch_encoder*.py, test_torch_vlm.py): the model builds and
+    # OBSPA prunes it on reduced data
+    from repro_torch.core.obspa import obspa_prune
+    from repro_torch.data.synthetic import batches
+    m = t_build(cfg)
+    calib = batches(cfg, "datafree", 1, 2, 40, seed=5, device="cpu")
+    res = obspa_prune(m, m.init(device="cpu"), 0.5, calib,
+                      calib_mode="datafree")
+    if cfg.family == "moe":
+        assert res.cfg.n_experts == cfg.n_experts // 2
+    elif cfg.family in ("ssm", "hybrid"):
+        assert res.cfg.ssm_n_heads == cfg.ssm_n_heads // 2
+    else:
+        assert res.cfg.n_heads == cfg.n_heads // 2
+    assert res.report["groups_with_obs"] > 0
+    with torch.no_grad():
+        out = t_build(res.cfg).forward(res.params, calib[0])
+    assert torch.isfinite(out).all()
+    # a family the reference does not register is refused
+    with pytest.raises(NotImplementedError, match="no model of family"):
+        t_build(cfg.replace(family="rnn"))
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked_for():

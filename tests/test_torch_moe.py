@@ -309,10 +309,16 @@ def test_decode_rollout_vs_jax(monkeypatch):
 
 def test_gates_admit_moe_and_refuse_the_rest():
     from repro_torch.configs import get_config, reduced
-    from repro_torch.core.obspa import require_obspa_family
+    from repro_torch.core.obspa import obspa_prune
+    from repro_torch.models.api import Model
     for name in ARCHS.values():
-        cfg = reduced(get_config(name))
-        tf.require_ported(cfg)
-        require_obspa_family(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 14"):
-        tf.require_ported(reduced(get_config("paligemma-3b")))
+        tf.require_ported(reduced(get_config(name)))
+    # experts outside the moe family (a combination no config of the
+    # reference has) and an unknown family are refused, by the model and
+    # by OBSPA, whose trace builds the model
+    with pytest.raises(NotImplementedError, match="no model of family"):
+        tf.require_ported(reduced(get_config("paligemma-3b")).replace(
+            n_experts=4, top_k=2))
+    rnn = reduced(get_config("paligemma-3b")).replace(family="rnn")
+    with pytest.raises(NotImplementedError, match="no model of family"):
+        obspa_prune(Model(rnn), {"w": torch.zeros(1)}, 0.5, [{}])
