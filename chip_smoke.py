@@ -19,14 +19,18 @@ nothing of JAX or of the JAX package.  Phases:
     pool, the CUDA cores otherwise): decode and prefill at TinyLlama
     width, windows, int8 / fp8 pools, pruned-looking shapes, poisoned null
     blocks, C*G off the 64-row grid, blocks of 4 and 8, D 256 / DV 200, one
-    2048-token sequence beside kv_len 0 and 1; visit counts exact and two
-    calls bitwise equal; then (3b) its time beside the plain version, three
+    2048-token sequence beside kv_len 0 and 1, the speculative verify's
+    prefill entry at C = 1, 2 and 4 with histories ending anywhere (G 8
+    over bf16 and int8 pools, G 1 at head_dim 128) and the pruned draft's
+    decode and prefill; visit counts exact and two calls bitwise equal;
+    then (3b) its time beside the plain version, three
     ``scaled_dot_product_attention`` yardsticks (on the history gathered
     and repeated to all heads; on the kv-heads with ``enable_gqa`` and on
     the kv-heads with the query heads folded into rows, both with the keys
     cut to the longest live length), in alternating rounds by the
     profiler's device time per call, SM clock, power and temperature read
-    around each, and the card's bound;
+    around each, and the card's bound, at the decode, prefill and verify
+    (C = 4) shapes;
  4. the main path at full width: ``tinyllama-1.1b`` (22 layers, bf16, random
     weights from a seed) served by ``repro_torch.serve.Engine``, checked by
     teacher forcing against ``Model.forward``, and its model steps against
@@ -94,8 +98,19 @@ nothing of JAX or of the JAX package.  Phases:
     every model evaluated by a no-grad ``Model.loss`` on K2 and once on the
     plain attention, held to the plain version's own rounding spread (the
     mean per-token |CE bf16 - CE f32 twin|); RF/RP, step time, tokens/s
-    and peak memory of each; and a checkpoint-and-restart drill
-    (``run_with_restarts``) at the reduced config;
+    and peak memory of each; then (11b) the trained dense model served as
+    the target of its own drafts, self-speculative at K 4 with greedy
+    verify: 16 requests whose prompts are 192-320-token prefixes of rows
+    no model trained on, 64 new tokens each — (a) dense only, (b) the L1
+    + fine-tuned draft on a bf16 draft pool, run twice, (c) on an int8
+    draft pool, (d) the OBSPA draft, (e) (b) with telemetry on — each held
+    lossless by teacher forcing against ``Model.forward`` (a limit set
+    before the runs from the plain bf16 forward's shortfall against its
+    float32 twin), (e) to (b) token for token, host fetches to the
+    sampling steps and K1's launches to their formula, with acceptance,
+    tok/s, TTFT, draft pool bytes, peak memory and (e)'s phase timers;
+    and a checkpoint-and-restart drill (``run_with_restarts``) at the
+    reduced config;
 12. the hybrid family at full width: ``hymba-1.5b`` (cut to 16 of its 32
     layers, ``HYMBA_LAYERS``; d 1600, 25 query heads over 5 KV heads of 64,
     window 1024 except on the global layers 0 and 15, 50 SSM heads x 64,
@@ -248,6 +263,7 @@ from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.cnn import stage_widths  # noqa: E402
 from repro_torch.models.layers import rms_norm, swiglu  # noqa: E402
 from repro_torch.models.ssm import ssd_reference, ssm_block  # noqa: E402
+from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.serve import Engine, ServeConfig  # noqa: E402
 from repro_torch.train.loop import (  # noqa: E402
     Trainer, TrainerConfig, run_with_restarts)
@@ -651,6 +667,57 @@ def phase_kernel_checks(rng, seed: int) -> float:
                     f"{tag} {'prefill C=128' if pre else 'decode'} "
                     f"{str(dt)[6:]}", c, prefill=pre,
                     valid=mva if pre else None))
+
+    # speculative verify (phase 11b): the prefill entry at C = K, each row's
+    # history ending anywhere — q_starts off the 16-row grid and off the
+    # block, so the causal diagonal cuts through a block — beside a wholly
+    # idle row (start 0, valid 0, as the engine sends an inactive slot) and
+    # a live history with no new rows; the null block poisoned.  C 2 and 4
+    # at G 8 over bf16 and int8 pools, C 4 at G 1 (qwen2-moe's heads: the
+    # split-KV instance with q_starts), C 1 through the prefill entry; then
+    # the pruned draft's shapes (16 heads over 2 KV heads, DV 32): its
+    # decode over bf16 and int8 pools and its C 128 prefill over int8.  Own
+    # generator, as above.
+    rng = np.random.default_rng([seed, 3, 2])
+
+    def verify_rows(B, C, hi):
+        st = ragged(rng, B, 1, hi)
+        st[:4] = (17, 33, 255, 1)
+        st[st % 16 == 0] += 3            # no start on the 16-row grid
+        va = ragged(rng, B, 1, C)
+        va[0] = C
+        st[4], va[4] = 0, 0              # a wholly idle row
+        st[5], va[5] = 301, 0            # a live history, no new rows
+        return st.astype(np.int32), va.astype(np.int32)
+
+    vt = dict(B=16, H=32, KH=4, D=64, DV=64, bs=16, NB=32)
+    vm = dict(B=16, H=16, KH=16, D=128, DV=128, bs=16, NB=32)
+    for C_, pool, shp, tag in ((2, torch.bfloat16, vt, "G=8"),
+                               (4, torch.bfloat16, vt, "G=8"),
+                               (2, "int8", vt, "G=8"), (4, "int8", vt, "G=8"),
+                               (4, torch.bfloat16, vm, "G=1 D=128"),
+                               (1, torch.bfloat16, vt, "G=8")):
+        st, va = verify_rows(shp["B"], C_, 500)
+        c = make_case(rng, C=C_, q_dtype=torch.bfloat16, pool=pool,
+                      kv_lens=st + va, q_starts=st, poison_null=True, **shp)
+        worst = max(worst, check_case(
+            f"verify C={C_} {tag} {pool}".replace("torch.", ""), c,
+            prefill=True, valid=va))
+    dr = dict(B=16, H=16, KH=2, D=64, DV=32, bs=16, NB=32)
+    dl = ragged(rng, 16, 1, 500)
+    dl[:3] = (512, 1, 0)
+    for pool in (torch.bfloat16, "int8"):
+        c = make_case(rng, C=1, q_dtype=torch.bfloat16, pool=pool,
+                      kv_lens=dl, poison_null=True, **dr)
+        worst = max(worst, check_case(
+            f"draft decode H=16 KH=2 DV=32 {pool}".replace("torch.", ""), c))
+    st = (ragged(rng, 16, 0, 2) * 128).astype(np.int32)
+    va = ragged(rng, 16, 0, 128)
+    va[0] = 128
+    c = make_case(rng, C=128, q_dtype=torch.bfloat16, pool="int8",
+                  kv_lens=st + va, q_starts=st, poison_null=True, **dr)
+    worst = max(worst, check_case("draft prefill C=128 DV=32 int8", c,
+                                  prefill=True, valid=va))
     return worst
 
 
@@ -699,6 +766,9 @@ K1_TIMED = dict(B=32, H=32, KH=4, D=64, bs=16, decode_lens=(256, 1088),
                 chunks=(2, 7))
 K1_TIMED_MOE = dict(B=16, H=16, KH=16, D=128, bs=16, decode_lens=(64, 512),
                     chunks=(0, 3))
+# the speculative verify (phase 11b): C = K = 4 rows a sequence after
+# histories of phase 11b's prompts and outputs, 192-383 tokens, anywhere
+K1_TIMED_VERIFY = dict(B=16, H=32, KH=4, D=64, bs=16, starts=(192, 383))
 
 
 def time_kernel(name, rng, *, C, NB, prefill, iters, rounds=6,
@@ -715,7 +785,9 @@ def time_kernel(name, rng, *, C, NB, prefill, iters, rounds=6,
     B, H, KH, D, bs = (shape[k] for k in ("B", "H", "KH", "D", "bs"))
     dt = torch.bfloat16
     if prefill:
-        starts = (ragged(rng, B, *shape["chunks"]) * 128).astype(np.int32)
+        starts = (ragged(rng, B, *shape["starts"]) if "starts" in shape
+                  else ragged(rng, B, *shape["chunks"]) * 128
+                  ).astype(np.int32)
         valid = np.full(B, C, np.int32)
         lens = starts + valid
     else:
@@ -3011,7 +3083,7 @@ def phase_any_time(quick: bool, seed: int) -> dict:
                                 train_b[:at["ft_steps"]], at["lr"])
     r["after_finetune"] = evaluate("train-prune-finetune: tuned", lm, p_ft)
     res["train_prune_finetune"] = r
-    del l1, p_ft
+    del l1                              # p_ft drafts in phase 11b
 
     # train-prune: OBSPA after training, data-free calibration, no tuning
     calib = batches(cfg, "datafree", 4, 4, 512, seed=5)
@@ -3027,7 +3099,6 @@ def phase_any_time(quick: bool, seed: int) -> dict:
     r["after_prune"] = evaluate("train-prune: OBSPA (datafree)", om,
                                 ob.params)
     res["train_prune_obspa"] = r
-    del ob, dense, init
 
     torch.cuda.synchronize()
     res["k2_launches"] = k2.launch_count()
@@ -3089,8 +3160,270 @@ def phase_any_time(quick: bool, seed: int) -> dict:
         res["dense_trained"]["k2_heldout"]
     print(f"  dense training lowered the loss on seen batches by {drop:.4f} "
           f"nats (margin {DENSE_MARGIN}; held out: {held:.4f})", flush=True)
+    # phase 11b serves the trained model with its drafts, on the rows no
+    # model trained on: the held-out batch and SNIP's gradient batch
+    rows = torch.cat([heldout["tokens"], grad_b["tokens"]])
+    res["spec_serve"] = phase_spec_serve(
+        model, dense, {"L1+FT": (lm, p_ft), "OBSPA": (om, ob.params)}, rows,
+        np.random.default_rng([seed, 11, 2]))
+    del ob, dense, init, p_ft
+    torch.cuda.empty_cache()
     res["restart_drill"] = restart_drill(seed + 5000)
     torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 11b: self-speculative serving of the trained TinyLlama
+# ---------------------------------------------------------------------------
+
+# 16 requests, prompts the first 192-320 tokens of the Markov task's rows that
+# no model trained on, 64 new tokens each, K 4, greedy
+SPEC = dict(requests=16, gen=64, lo=192, hi=320, k=4)
+
+
+def spec_tolerance(model, params, recs) -> dict:
+    """The teacher-forced limit of the speculative runs, fixed before them
+    from the dense-only run's requests: the plain bf16 forward's own
+    shortfall against its float32 twin (over every emitted position, the
+    float32 logit of the bf16 argmax below the float32 maximum: how far
+    bf16 rounding alone moves a choice), plus one bf16 step of the largest
+    logit (2^-7 · max|logit|)."""
+    cfg = model.cfg
+    plain = build(cfg.replace(use_kernels=False))
+    twin = build(cfg.replace(dtype="float32", use_kernels=False))
+    p32 = f32_tree(params)
+    short = top = 0.0
+    with torch.no_grad():
+        for rec in recs:
+            seq = torch.tensor([list(rec.prompt) + list(rec.tokens)],
+                               dtype=torch.int32, device=DEV)
+            P, n = len(rec.prompt), len(rec.tokens)
+            lb = plain.forward(params, {"tokens": seq})[0].float()
+            lf = twin.forward(p32, {"tokens": seq})[0].float()[P - 1:P - 1 + n]
+            pick = lb[P - 1:P - 1 + n].argmax(1)[:, None]
+            short = max(short, float((lf.max(1).values
+                                      - lf.gather(1, pick)[:, 0]).max()))
+            top = max(top, float(lb.abs().max()))
+    del p32
+    torch.cuda.empty_cache()
+    return {"plain_bf16_vs_f32_shortfall": short, "max_abs_logit": top,
+            "limit": short + BF16_BLOCK_TOL * top}
+
+
+def spec_meter(engine) -> dict:
+    """Count the drafting slot-cycles (a slot offered candidates) and the
+    tokens they emitted, by wrapping ``Engine._fold_spec``."""
+    meter = {"slot_cycles": 0, "tokens": 0}
+    fold = engine._fold_spec
+
+    def counted(plan, out, n_acc, spec_meta):
+        drafted = [(s, len(s.generated)) for s, n, _ in spec_meta if n]
+        fold(plan, out, n_acc, spec_meta)
+        meter["slot_cycles"] += len(drafted)
+        meter["tokens"] += sum(len(s.generated) - n0 for s, n0 in drafted)
+
+    engine._fold_spec = counted
+    return meter
+
+
+def pool_bytes(cache: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def spec_run(label, model, params, reqs, scfg, draft=None, telemetry=None
+             ) -> tuple[dict, dict]:
+    """Serve ``reqs`` through ``Engine`` (speculative with ``draft``); hold
+    the host fetches to the sampling steps and K1's launches to the run's
+    counters.  Returns ({rid: result}, record)."""
+    torch.cuda.reset_peak_memory_stats()
+    kw = {} if draft is None else {"draft_model": draft[0],
+                                   "draft_params": draft[1]}
+    eng = Engine(model, params, scfg, telemetry=telemetry, **kw)
+    if eng.spec_active != (draft is not None):
+        raise AssertionError(f"11b {label}: spec_active {eng.spec_active}")
+    sampling = count_sampling_steps(eng)
+    meter = spec_meter(eng)
+    reset_launches()                  # counts = this run's only
+    out, st = eng.run([dict(r) for r in reqs])
+    torch.cuda.synchronize()
+    lc = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if len(out) != len(reqs) or any(len(r.tokens) != reqs[0][
+            "max_new_tokens"] for r in out.values()):
+        raise AssertionError(f"11b {label}: not every request finished")
+    if st["host_syncs"] != sampling[0]:
+        raise AssertionError(f"11b {label}: {st['host_syncs']:.0f} host "
+                             f"fetches over {sampling[0]} sampling steps")
+    L = model.cfg.num_layers
+    Ld = draft[0].cfg.num_layers if draft is not None else 0
+    K = scfg.spec_k if draft is not None else 0
+    dec, pre, cyc = (int(st[k]) for k in ("decode_calls", "prefill_calls",
+                                          "spec_cycles"))
+    want = {"decode": L * dec + Ld * K * cyc,
+            "prefill": L * (pre + cyc) + (Ld * pre if draft else 0)}
+    formula = (f"decode {L} x {dec} decode calls + {Ld} x {K} x {cyc} "
+               f"draft steps = {want['decode']}; prefill {L} x ({pre} "
+               f"prefill + {cyc} verify calls) + {Ld} x {pre if draft else 0}"
+               f" draft prefill calls = {want['prefill']}")
+    if lc["decode"] != want["decode"] or lc["prefill"] != want["prefill"]:
+        raise AssertionError(f"11b {label}: K1 launches {lc} != {formula}")
+    rec = {"label": label, "steps": st["steps"], "wall_s": st["wall_s"],
+           "decode_tok_per_s": st["decode_tok_per_s"],
+           "total_tok_per_s": st["total_tok_per_s"],
+           "mean_ttft_s": st["mean_ttft_s"], "host_syncs": st["host_syncs"],
+           "sampling_steps": sampling[0], "decode_calls": dec,
+           "prefill_calls": pre, "spec_cycles": cyc,
+           "spec_proposed": st["spec_proposed"],
+           "spec_accepted": st["spec_accepted"],
+           "spec_acceptance": st["spec_acceptance"],
+           "drafting_slot_cycles": meter["slot_cycles"],
+           "tokens_per_slot_cycle": meter["tokens"] / meter["slot_cycles"]
+           if meter["slot_cycles"] else 0.0,
+           "k1_launches": {"decode": lc["decode"], "prefill": lc["prefill"]},
+           "k1_launch_formula": formula, "peak_mem_bytes": peak,
+           "target_pool_bytes": pool_bytes(eng.cache),
+           "draft_pool_bytes": pool_bytes(eng.draft_cache)
+           if eng.spec_active else 0}
+    print(f"  11b {label:22s} {st['steps']:.0f} steps | decode "
+          f"{st['decode_tok_per_s']:.1f} tok/s | TTFT "
+          f"{st['mean_ttft_s'] * 1e3:.1f} ms | acceptance "
+          f"{st['spec_acceptance']:.3f} ({st['spec_accepted']:.0f}/"
+          f"{st['spec_proposed']:.0f}), {rec['tokens_per_slot_cycle']:.3f} "
+          f"tokens a drafting slot-cycle over {cyc} cycles | host fetches "
+          f"{st['host_syncs']:.0f} = sampling steps | peak "
+          f"{peak / 2**30:.2f} GiB | K1 {lc['decode']} decode / "
+          f"{lc['prefill']} prefill launches = {formula}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return out, rec
+
+
+def phase_spec_serve(model, dense, drafts: dict, rows: torch.Tensor,
+                     rng) -> dict:
+    """Phase 11b: the trained dense TinyLlama served as the target of its own
+    pruned drafts (``drafts``: label -> (model, params)), on ``rows`` that
+    no model trained on: (a) dense only, (b) the L1 + fine-tuned draft on a
+    bf16 draft pool, twice, (c) the same draft on an int8 draft pool, (d)
+    the OBSPA draft, (e) run (b) with telemetry on."""
+    print("phase 11b: self-speculative serving of the trained tinyllama-1.1b "
+          "(a pruned draft proposes, the dense target verifies)", flush=True)
+    t0 = time.time()
+    n, gen, K = SPEC["requests"], SPEC["gen"], SPEC["k"]
+    lens = rng.integers(SPEC["lo"], SPEC["hi"] + 1, size=n)
+    reqs = [{"prompt": rows[i % rows.shape[0], :int(lens[i])].tolist(),
+             "max_new_tokens": gen} for i in range(n)]
+    base = ServeConfig(max_seqs=n, block_size=16,
+                       max_len=SPEC["hi"] + gen + K + 16, chunk_size=128)
+    scfg = dataclasses.replace(base, spec_k=K)
+    res: dict = {"config": dict(SPEC), "prompt_lens": lens.tolist()}
+    k2_0 = k2.launch_count()
+
+    out_a, res["a_dense"] = spec_run("(a) dense only", model, dense, reqs,
+                                     base)
+    tol = spec_tolerance(model, dense, [out_a[r] for r in sorted(out_a)])
+    res["tolerance"] = tol
+    print(f"  11b teacher-forced limit, set before the speculative runs: "
+          f"plain bf16 vs float32 twin shortfall "
+          f"{tol['plain_bf16_vs_f32_shortfall']:.4f} + 2^-7 x max|logit| "
+          f"{tol['max_abs_logit']:.3f} = {tol['limit']:.4f}", flush=True)
+    l1d, obd = drafts["L1+FT"], drafts["OBSPA"]
+    runs = {"b": ("(b) L1+FT, bf16 pool", l1d, "", None),
+            "b2": ("(b) again", l1d, "", None),
+            "c": ("(c) L1+FT, int8 pool", l1d, "int8", None),
+            "d": ("(d) OBSPA, bf16 pool", obd, "", None),
+            "e": ("(e) = (b), telemetry on", l1d, "",
+                  Telemetry(enabled=True))}
+    outs = {"a": out_a}
+    for key, (label, d, pool, tel) in runs.items():
+        outs[key], res[key] = spec_run(
+            label, model, dense, reqs,
+            dataclasses.replace(scfg, draft_cache_dtype=pool), d, tel)
+    tokens = {k: [o[r].tokens for r in sorted(o)] for k, o in outs.items()}
+
+    # (b)-(d) lossless under teacher forcing through Model.forward (K2);
+    # beside the acceptance, the share of emitted positions where the
+    # draft's own forward over the final sequence picks the target's
+    # token (a first candidate's chance of acceptance)
+    drafts_of = {"b": l1d, "c": l1d, "d": obd}
+    for key in ("a", "b", "c", "d"):
+        gaps, agree = [], []
+        for rid in sorted(outs[key]):
+            rec = outs[key][rid]
+            toks = torch.tensor([list(rec.prompt) + list(rec.tokens)],
+                                dtype=torch.int32, device=DEV)
+            P, m_ = len(rec.prompt), len(rec.tokens)
+            with torch.no_grad():
+                lt = model.forward(dense, {"tokens": toks})[0].float()
+                gaps.append(forced_gap(lt, rec)[0])
+                if key in drafts_of:
+                    dm_, dp_ = drafts_of[key]
+                    ld = dm_.forward(dp_, {"tokens": toks})[0]
+                    agree.append(float((lt[P - 1:P - 1 + m_].argmax(1) ==
+                                        ld[P - 1:P - 1 + m_].argmax(1))
+                                       .float().mean()))
+        r = res[key if key != "a" else "a_dense"]
+        r["teacher_forced_shortfall"] = max(gaps)
+        if agree:
+            r["forced_argmax_agreement"] = float(np.mean(agree))
+            print(f"  11b {key}: the draft's forward picks the target's "
+                  f"token at {100 * r['forced_argmax_agreement']:.1f} % of "
+                  f"the emitted positions (acceptance "
+                  f"{r['spec_acceptance']:.3f})", flush=True)
+        same = [t == ta for t, ta in zip(tokens[key], tokens["a"])]
+        r["identical_to_a"] = float(np.mean(same))
+        r["first_divergence"] = [
+            next(i for i, (x, y) in enumerate(zip(t, ta)) if x != y)
+            for t, ta, eq in zip(tokens[key], tokens["a"], same) if not eq]
+        print(f"  11b {key}: teacher-forced shortfall {max(gaps):.4f} (limit "
+              f"{tol['limit']:.4f}{', recorded only' if key == 'a' else ''})"
+              f" | identical to (a) {100 * r['identical_to_a']:.1f} % of "
+              f"requests; first divergence at {r['first_divergence']}",
+              flush=True)
+        if key != "a" and max(gaps) > tol["limit"]:
+            raise AssertionError(f"11b ({key}): teacher-forced shortfall "
+                                 f"{max(gaps)} > {tol['limit']}")
+    res["k2_launches_teacher_forcing"] = k2.launch_count() - k2_0
+
+    # telemetry is host-only: (e) equals (b) token for token, held to the
+    # spread between the two telemetry-off runs of (b)
+    spread = sum(x != y for x, y in zip(tokens["b"], tokens["b2"]))
+    moved = sum(x != y for x, y in zip(tokens["e"], tokens["b"]))
+    res["b_runs_differ_in"] = spread
+    res["e_differs_from_b_in"] = moved
+    print(f"  11b (b) twice: {spread} of {n} requests differ; (e) with "
+          f"telemetry vs (b): {moved} differ", flush=True)
+    if moved > spread:
+        raise AssertionError(f"11b: telemetry moved {moved} requests' tokens "
+                             f"(the two (b) runs differ in {spread})")
+
+    tel = runs["e"][3]
+    reg = tel.registry
+    phases = {}
+    for name in ("step", "plan", "prefill_dispatch", "decode_dispatch",
+                 "sync", "fold"):
+        h = reg.histograms.get("phase/" + name)
+        if h is not None:
+            phases[name] = h.summary()
+    acc = reg.histograms["spec/accepted_per_cycle"]
+    res["e_phases"] = phases
+    res["e_accepted_per_cycle"] = {"buckets": list(acc.buckets),
+                                   "counts": list(acc.counts),
+                                   "summary": acc.summary()}
+    print("  11b (e) step phases (per-step host wall, ms): " + " | ".join(
+        f"{k} p50 {v['p50'] * 1e3:.2f} mean {v['mean'] * 1e3:.2f} n "
+        f"{v['count']}" for k, v in phases.items()), flush=True)
+    print(f"  11b (e) accepted drafts per slot-cycle, counts at 0..{K}: "
+          f"{acc.counts[:K + 1]} (mean {acc.summary()['mean']:.3f})",
+          flush=True)
+    bf, i8 = res["b"]["draft_pool_bytes"], res["c"]["draft_pool_bytes"]
+    print(f"  11b draft pool {bf / 2**20:.1f} MiB in bf16, {i8 / 2**20:.1f} "
+          f"MiB in int8 ({i8 / bf:.3f}x); target pool "
+          f"{res['b']['target_pool_bytes'] / 2**20:.1f} MiB", flush=True)
+    if not i8 < bf:
+        raise AssertionError("11b: the int8 draft pool is not smaller")
+    res["seconds"] = time.time() - t0
+    print(f"  11b took {res['seconds']:.1f}s", flush=True)
     return res
 
 
@@ -4922,6 +5255,10 @@ def main() -> int:
     k1_moe = [time_kernel(f"{k['name']} qwen2-moe", moe_rng, C=c, NB=32,
                           prefill=c > 1, iters=it, shape=K1_TIMED_MOE)
               for k, c, it in ((kernels[0], 1, 40), (kernels[1], 128, 12))]
+    # the speculative verify's shape (phase 11b), from a generator of its own
+    k1_verify = time_kernel("paged_attention.verify C=4", np.random.default_rng(
+        [args.seed, 3, 3]), C=SPEC["k"], NB=32, prefill=True, iters=40,
+        shape=K1_TIMED_VERIFY)
     lap("phase 3b")
     k4_rel = phase_k4_checks()
     print("phase 6b: K4 time at the main path's tiles (f32)", flush=True)
@@ -4962,6 +5299,11 @@ def main() -> int:
     lap("phases 10-10b")
     any_res = phase_any_time(args.quick, args.seed)
     lap("phase 11")
+    phase_s["phase 11b (within phase 11)"] = any_res["spec_serve"]["seconds"]
+    spec_runs = [v for v in any_res["spec_serve"].values()
+                 if isinstance(v, dict) and "k1_launches" in v]
+    for k, entry in (("decode", kernels[0]), ("prefill", kernels[1])):
+        entry["launches_spec"] = sum(r["k1_launches"][k] for r in spec_runs)
     k2_entry["launches"] = any_res["k2_launches"]
     k2_entry["launches_teacher_forcing"] = {
         "phase_4": main_res["k2_launches_teacher_forcing"],
@@ -5002,6 +5344,7 @@ def main() -> int:
     for entry, timed in ((kernels[0], k1_moe[0]), (kernels[1], k1_moe[1]),
                          (k2_entry, k2_moe)):
         entry["qwen2_moe"] = {key: timed.get(key) for key in timed_keys}
+    kernels[1]["verify"] = {key: k1_verify.get(key) for key in timed_keys}
     k2_entry["hubert_xlarge"] = {key: k2_hubert.get(key)
                                  for key in timed_keys}
     for label, ks in moe_instances.items():

@@ -6,6 +6,10 @@
       [--reduced] [--no-prefix-caching] [--temperature 0.8] \
       [--cache-dtype int8] [--prune-ratio 0.5 [--obspa]] [--device cpu]
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --reduced --spec-k 3 --draft-ratio 0.5 [--spec-ema 0.5] \
+      [--draft-cache-dtype int8] [--metrics] [--trace-out t.json] --device cpu
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --reduced --prune-ratio 0.5 [--obspa] --device cpu
 
@@ -34,6 +38,15 @@ serves the moe family (routed experts with shared experts; the serving
 steps pass their real tokens to the dispatch, so padding takes no expert
 capacity), and a pruned model's line adds its expert count, expert width
 and shared-expert width.
+
+``--spec-k K`` serves with self-speculative decoding: the draft is the
+served model L1-pruned at ``--draft-ratio`` (``prune_model``, per group), K
+drafted tokens a cycle verified by the target in one multi-token pass
+(``--spec-ema`` for a dynamic K, ``--draft-cache-dtype`` for a narrower
+draft pool); it is gated off, with a message, for the ssm and hybrid
+families.  ``--metrics`` turns telemetry on and prints the step-phase table
+and the Prometheus text after the run; ``--trace-out PATH`` writes a
+Chrome trace of it (load it in https://ui.perfetto.dev).
 
 ``generate`` (sequential, token-by-token over a contiguous cache) is kept as
 the correctness oracle the engine is tested against.
@@ -116,6 +129,22 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--obspa", action="store_true",
                     help="with --prune-ratio: OBSPA with data-free "
                          "calibration instead of L1 magnitude")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative draft tokens per cycle (0 = off)")
+    ap.add_argument("--draft-ratio", type=float, default=0.5,
+                    help="SPA prune ratio for the speculative draft")
+    ap.add_argument("--spec-ema", type=float, default=0.0,
+                    help="dynamic speculative K: EMA coefficient of the "
+                         "per-slot acceptance rate (0 = fixed K)")
+    ap.add_argument("--draft-cache-dtype", default="",
+                    help="draft KV pool dtype, e.g. bfloat16 or int8 "
+                         "(default: the draft's dtype)")
+    ap.add_argument("--metrics", action="store_true",
+                    help="enable serving telemetry and print phase "
+                         "timings + Prometheus metrics after the run")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome-trace JSON of the run "
+                         "(load in https://ui.perfetto.dev)")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run without a GPU (default: the CUDA "
                          "device; fails when there is none)")
@@ -158,6 +187,18 @@ def main(argv: list[str] | None = None) -> None:
                         f"{pc.ssm_head_dim}, state {pc.ssm_state}")
         print(f"serving pruned model: {pc.name} ({'; '.join(dims)})")
 
+    draft_model = draft_params = None
+    if args.spec_k > 0:
+        from repro_torch.core.pruner import prune_model
+        dr = prune_model(model, params, args.draft_ratio, criterion="l1")
+        draft_model, draft_params = build(dr.cfg), dr.params
+        print(f"speculative draft: {dr.cfg.name} "
+              f"({dr.cfg.param_count()} params, K={args.spec_k})")
+
+    telemetry = None
+    if args.metrics or args.trace_out:
+        from repro_torch.obs import Telemetry
+        telemetry = Telemetry(enabled=True)
     toks, lens = synthetic_prompts(cfg.vocab_size, args.requests,
                                    args.prompt_len, args.seed)
     engine = Engine(model, params, ServeConfig(
@@ -166,7 +207,13 @@ def main(argv: list[str] | None = None) -> None:
         num_blocks=args.num_blocks, seed=args.seed,
         chunk_size=args.chunk_size, prefill_budget=args.prefill_budget,
         prefix_caching=not args.no_prefix_caching,
-        cache_dtype=args.cache_dtype), device=device)
+        spec_k=args.spec_k, spec_ema=args.spec_ema,
+        draft_cache_dtype=args.draft_cache_dtype,
+        cache_dtype=args.cache_dtype), draft_model=draft_model,
+        draft_params=draft_params, telemetry=telemetry, device=device)
+    if args.spec_k > 0 and not engine.spec_active:
+        print("speculative decoding gated off for this family "
+              "(recurrent state cannot be rewound)")
 
     t0 = time.time()
     for i in range(args.requests):
@@ -185,8 +232,44 @@ def main(argv: list[str] | None = None) -> None:
           f"{stats['steps']:.0f} steps | "
           f"{stats['prefill_chunks']:.0f} prefill chunks | "
           f"mean ttft {stats['mean_ttft_s'] * 1e3:.1f}ms")
+    if engine.spec_active:
+        print(f"speculative: {stats['spec_cycles']:.0f} cycles | "
+              f"acceptance {stats['spec_acceptance']:.1%} "
+              f"({stats['spec_accepted']:.0f}/{stats['spec_proposed']:.0f})")
     first = out[min(out)]
     print("sample token ids:", first.tokens[:16])
+
+    if args.metrics:
+        from repro_torch.obs import prometheus_text
+        reg = telemetry.registry
+        print("\n-- step phases (per-step wall, us) --")
+        for name in ("step", "plan", "prefill_dispatch", "decode_dispatch",
+                     "sync", "fold"):
+            h = reg.histograms.get("phase/" + name)
+            if h is None:
+                continue
+            s = h.summary()
+            print(f"{name:18s} p50 {s['p50'] * 1e6:9.1f}  "
+                  f"p99 {s['p99'] * 1e6:9.1f}  "
+                  f"mean {s['mean'] * 1e6:9.1f}  n={s['count']}")
+        step_h = reg.histograms.get("phase/step")
+        sync_h = reg.histograms.get("phase/sync")
+        if step_h is not None and step_h.total > 0 and sync_h is not None:
+            print(f"host bubble fraction "
+                  f"{sync_h.total / step_h.total:.3f} "
+                  f"(phase sync / phase step wall)")
+        lat = [(out[r].queue_wait_s, out[r].preempt_stall_s, out[r].tpot_s)
+               for r in out]
+        print(f"mean queue wait {np.mean([x[0] for x in lat]) * 1e3:.2f}ms | "
+              f"mean preempt stall {np.mean([x[1] for x in lat]) * 1e3:.2f}ms"
+              f" | mean tpot {np.mean([x[2] for x in lat]) * 1e3:.2f}ms")
+        print("\n-- prometheus --")
+        print(prometheus_text(reg))
+    if args.trace_out:
+        from repro_torch.obs import write_chrome
+        write_chrome(telemetry.trace, args.trace_out)
+        print(f"chrome trace -> {args.trace_out} "
+              f"(load in https://ui.perfetto.dev)")
 
 
 if __name__ == "__main__":

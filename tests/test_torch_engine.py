@@ -275,7 +275,7 @@ def test_port_engine_vs_jax_engine(scenario):
             rid, n = s.req.rid, len(s.generated)    # from JAX's tokens
             emitted[rid].extend(s.generated[len(emitted[rid]):n])
             s.generated[:] = jout[rid].tokens[:n]
-    tstats = teng._c
+    tstats = {k: c.value for k, c in teng._c.items()}   # registry counters
 
     assert len(ttrace) == len(jtrace)
     for i, (a, b) in enumerate(zip(ttrace, jtrace)):
@@ -321,8 +321,8 @@ def test_one_host_fetch_per_step(monkeypatch):
         assert len(calls) - before <= 1
     # one fetch for every step that samples and none besides (a call that
     # only retires finished requests runs no step)
-    assert len(calls) == eng._c["host_syncs"] == sampling[0]
-    assert 0 < sampling[0] <= eng._c["steps"] <= steps
+    assert len(calls) == eng._c["host_syncs"].value == sampling[0]
+    assert 0 < sampling[0] <= eng._c["steps"].value <= steps
 
 
 def test_sampling_greedy_rows_untouched_and_distribution():
@@ -366,6 +366,40 @@ def test_cli_serves_on_the_cpu_when_asked(capsys):
     assert "decode " in out and "tok/s | prefill+decode" in out
     toks, lens = synthetic_prompts(256, 6, 16, seed=0)
     assert lens == [16, 14, 12, 10, 16, 14] and toks.shape == (6, 16)
+
+
+def test_cli_speculative_serving_with_metrics_and_trace(capsys, tmp_path):
+    """``--spec-k`` serves with an L1-pruned draft and prints the acceptance
+    line; ``--metrics`` the phase table and the Prometheus text;
+    ``--trace-out`` writes a Chrome trace that parses.  A recurrent family
+    prints the gate's message and serves dense."""
+    import json
+    from repro_torch.launch import serve as cli
+    trace = tmp_path / "t.json"
+    cli.main(["--arch", "tinyllama-1.1b", "--reduced", "--requests", "4",
+              "--prompt-len", "16", "--gen", "6", "--max-seqs", "2",
+              "--block-size", "4", "--chunk-size", "8", "--spec-k", "3",
+              "--draft-ratio", "0.5", "--metrics", "--trace-out",
+              str(trace), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "speculative draft: tinyllama-1.1b-reduced-pruned" in out
+    assert "served 4 requests / 24 new tokens" in out
+    assert "speculative: " in out and "cycles | acceptance " in out
+    assert "-- step phases (per-step wall, us) --" in out
+    for name in ("step", "plan", "decode_dispatch", "sync", "fold"):
+        assert f"\n{name} " in out, name
+    assert "repro_serve_spec_cycles_total" in out
+    assert "repro_spec_accepted_per_cycle_bucket" in out
+    doc = json.loads(trace.read_text())
+    phs = {e["ph"] for e in doc["traceEvents"]}
+    assert {"M", "X", "b", "e", "C"} <= phs
+    cli.main(["--arch", "mamba2-1.3b", "--reduced", "--requests", "2",
+              "--prompt-len", "8", "--gen", "3", "--spec-k", "3",
+              "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "speculative decoding gated off for this family" in out
+    assert "served 2 requests / 6 new tokens" in out
+    assert "speculative: " not in out
 
 
 def test_port_imports_without_jax_or_the_jax_package():

@@ -91,7 +91,7 @@ def test_port_engine_vs_jax_engine(scenario):
             rid, n = s.req.rid, len(s.generated)    # from JAX's tokens
             emitted[rid].extend(s.generated[len(emitted[rid]):n])
             s.generated[:] = jout[rid].tokens[:n]
-    tstats = teng._c
+    tstats = {k: c.value for k, c in teng._c.items()}   # registry counters
 
     assert len(ttrace) == len(jtrace)
     for i, (a, b) in enumerate(zip(ttrace, jtrace)):
