@@ -35,6 +35,22 @@ nothing of JAX or of the JAX package.  Phases:
     weights from a seed) served by ``repro_torch.serve.Engine``, checked by
     teacher forcing against ``Model.forward``, and its model steps against
     the same steps on the plain version; plus a short int8-pool run;
+    then (4b) the front door and crash safety on the same model (a
+    generator of its own): (a) phase 4's request mix served again with
+    telemetry on, lockstep and through the double-buffered ``step_async``
+    (each twice, alternating),
+    the async tokens held to the lockstep run's (exactly where a request's
+    prefix hits, chunk count and preemptions match, else by teacher
+    forcing), the step phases side by side; (b) both engines'
+    ``_submit_step`` (plan, uploads, dispatch, the fetch's start) under
+    ``torch.cuda.set_sync_debug_mode("error")``, and which of a pageable
+    blocking upload, a pinned non-blocking one and ``torch.multinomial``
+    synchronize; (c) ``stream()``, two cancels mid-flight, an expiring
+    deadline and ``EngineOverloaded``; (d) 16 requests under a step-pinned
+    fault schedule with full audits, lockstep and async; (e) a snapshot
+    saved to a file at step K - 1, the injected crash at K, and a fresh
+    engine restored from the file run to the end against an uninterrupted
+    run, lockstep and async;
  5. times of the device code around the kernel (KV scatter, sampling, COW);
  6. the OBSPA sweep kernel K4 against its plain PyTorch version and the
     float64 oracle (the reference's test shapes, identity Hessian, a batched
@@ -264,7 +280,9 @@ from repro_torch.models.cnn import stage_widths  # noqa: E402
 from repro_torch.models.layers import rms_norm, swiglu  # noqa: E402
 from repro_torch.models.ssm import ssd_reference, ssm_block  # noqa: E402
 from repro_torch.obs import Telemetry  # noqa: E402
-from repro_torch.serve import Engine, ServeConfig  # noqa: E402
+from repro_torch.serve import (  # noqa: E402
+    CrashError, Engine, EngineOverloaded, Fault, FaultInjector, ServeConfig,
+    load_snapshot, save_snapshot)
 from repro_torch.train.loop import (  # noqa: E402
     Trainer, TrainerConfig, run_with_restarts)
 from repro_torch.train.optim import OptConfig  # noqa: E402
@@ -1080,7 +1098,8 @@ def count_sampling_steps(engine) -> list[int]:
     return count
 
 
-def phase_main_path(rng, quick: bool, profile: bool = False) -> dict:
+def phase_main_path(rng, quick: bool, profile: bool = False,
+                    seed: int = 0) -> dict:
     print("phase 4: main path — tinyllama-1.1b through repro_torch.serve."
           "Engine", flush=True)
     cfg = get_config("tinyllama-1.1b")
@@ -1196,8 +1215,450 @@ def phase_main_path(rng, quick: bool, profile: bool = False) -> dict:
           f"prefill calls) | K1 launches {launches} | peak memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
     res["step_ms"] = time_steps(model, params, scfg, profile)
-    del eng, params
+    del eng
     torch.cuda.empty_cache()
+    res["front_door"] = phase_front_door(model, params, scfg, reqs, out,
+                                         seed)
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b: the front door and crash safety at full width
+# ---------------------------------------------------------------------------
+
+# (c) the front door's requests; (d) the chaos run's; (e) the crash run's:
+# greedy and temperature-0.8 requests, crashed at step CRASH_STEP after a
+# snapshot at CRASH_STEP - 1
+FRONT = dict(requests=6, gen=64, lo=256, hi=512, stream_gen=16,
+             deadline_s=0.3)
+CHAOS = dict(requests=16, gen=32, lo=256, hi=512)
+CRASH = dict(greedy=16, sampled=4, gen=32, lo=256, hi=512, step=10)
+# (a)'s runs: each mode twice, alternating
+FD_ORDER = ("lockstep", "async", "async", "lockstep")
+# the phases printed side by side for lockstep and async
+FD_PHASES = ("step", "plan", "overlap", "prefill_dispatch", "decode_dispatch",
+             "sync", "fold", "audit")
+
+
+def schedule_signature(engine) -> dict:
+    """Per request, what decides its arithmetic besides its tokens: the
+    cursor at each admission (the prefix it hit) and its prefill chunks,
+    recorded by wrapping the scheduler's ``plan_step``; preemptions come
+    from the records.  Returns {rid: [admission cursors, chunks]}."""
+    sig: dict = {}
+    plan_step = engine.scheduler.plan_step
+
+    def recorded(*args, **kw):
+        plan = plan_step(*args, **kw)
+        for s in plan.admitted:
+            sig.setdefault(s.req.rid, [[], 0])[0].append(s.num_cached)
+        for s, _ in plan.prefill:
+            sig.setdefault(s.req.rid, [[], 0])[1] += 1
+        return plan
+
+    engine.scheduler.plan_step = recorded
+    return sig
+
+
+def forbid_syncs(engine) -> None:
+    """Run the engine's host half of a step (plan, uploads, dispatch, the
+    fetch's start) under ``torch.cuda.set_sync_debug_mode("error")``: any
+    synchronization there raises."""
+    inner = engine._submit_step
+
+    def guarded(*args, **kw):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    engine._submit_step = guarded
+
+
+def sync_probe() -> dict:
+    """Which host<->device calls synchronize, by the same debug mode: the
+    blocking copy of a pageable buffer (the engine's upload before the
+    pinned staging), a pinned non-blocking copy (the engine's upload now),
+    and ``torch.multinomial`` (the engine's draw at temperature > 0)."""
+    flat = np.arange(4096, dtype=np.int32)
+    probs = torch.softmax(torch.randn(32, 32000, device=DEV), dim=-1)
+    calls = {
+        "pageable blocking .to()": lambda: torch.from_numpy(flat).to(DEV),
+        "pinned non_blocking .to()": lambda: torch.from_numpy(
+            flat).pin_memory().to(DEV, non_blocking=True),
+        "torch.multinomial": lambda: torch.multinomial(probs, 1),
+    }
+    out = {}
+    for label, fn in calls.items():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+            out[label] = False
+        except RuntimeError:
+            out[label] = True
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out
+
+
+def phase_table(tel) -> dict:
+    """p50 / mean ms and counts of the step phases, and the sync share."""
+    hists = tel.registry.histograms
+    out = {}
+    for name in FD_PHASES:
+        h = hists.get("phase/" + name)
+        if h is not None and h.count:
+            sm = h.summary()
+            out[name] = {"p50_ms": sm["p50"] * 1e3, "mean_ms": sm["mean"] * 1e3,
+                         "count": sm["count"]}
+    step, sync = hists.get("phase/step"), hists.get("phase/sync")
+    out["sync_share"] = sync.total / step.total if step and sync else 0.0
+    return out
+
+
+def check_tokens(label, model, params, out, ref, sig, ref_sig, tol,
+                 prefix_ok=()) -> dict:
+    """The rule 4b holds a run's tokens to a reference run by: a request
+    whose admission cursors, chunk count and preemptions equal the
+    reference's gives the same tokens exactly (a prefix of them for the
+    rids in ``prefix_ok``, cut short by a fault); any other (a prefix block
+    registers one step later under overlap) is held to ``tol`` by teacher
+    forcing."""
+    exact, forced, worst = [], [], 0.0
+    for r in sorted(out):
+        same = (sig.get(r), out[r].preemptions) == \
+            (ref_sig.get(r), ref[r].preemptions)
+        if same:
+            want = ref[r].tokens[:len(out[r].tokens)] if r in prefix_ok \
+                else ref[r].tokens
+            if out[r].tokens != want:
+                raise AssertionError(f"4b {label}: rid {r} has the reference's "
+                                     f"schedule but other tokens")
+            exact.append(r)
+        else:
+            gap = teacher_forced_gap(model, params, out[r])[0]
+            worst = max(worst, gap)
+            if gap > tol:
+                raise AssertionError(f"4b {label}: rid {r} teacher-forced "
+                                     f"shortfall {gap} > {tol}")
+            forced.append(r)
+    print(f"  4b {label}: {len(exact)} requests with the reference's "
+          f"schedule equal token for token, {len(forced)} with another "
+          f"held by teacher forcing (max shortfall {worst:.4f}, tol {tol})",
+          flush=True)
+    return {"exact": len(exact), "teacher_forced": len(forced),
+            "max_shortfall": worst}
+
+
+def random_requests(rng, vocab, n, gen, lo, hi, **kw) -> list[dict]:
+    """``n`` independent random prompts (no shared prefix)."""
+    return [{"prompt": rng.integers(0, vocab, size=int(rng.integers(
+        lo, hi + 1))).tolist(), "max_new_tokens": gen, **kw}
+        for _ in range(n)]
+
+
+def no_leaks(label, engine) -> None:
+    engine.cache_host.check()
+    a = engine.cache_host.allocator
+    if a.num_live or a.num_held:
+        raise AssertionError(f"4b {label}: {a.num_live} live and "
+                             f"{a.num_held} held blocks after the run")
+
+
+def fd_async_vs_lockstep(model, params, scfg, reqs, lock_out) -> dict:
+    """(a) and (b): phase 4's mix served lockstep and async with telemetry
+    on, in the order ``FD_ORDER`` (each mode twice, alternating, so that a
+    drift of the host's speed falls on both), both engines' host halves
+    under the sync debug mode.  The tokens of the first run of each mode
+    are compared; a mode's second run is recorded against its first."""
+    L = model.cfg.num_layers
+    gen = reqs[0]["max_new_tokens"]
+    runs: dict[str, list] = {"lockstep": [], "async": []}
+    for mode in FD_ORDER:
+        tel = Telemetry(enabled=True)
+        eng = Engine(model, params, dataclasses.replace(
+            scfg, async_step=mode == "async"), telemetry=tel)
+        sampling = count_sampling_steps(eng)
+        sig = schedule_signature(eng)
+        forbid_syncs(eng)
+        reset_launches()
+        out, st = eng.run([dict(r) for r in reqs])
+        torch.cuda.synchronize()
+        lc = launch_counts()
+        if len(out) != len(reqs) or any(len(r.tokens) != gen
+                                        for r in out.values()):
+            raise AssertionError(f"4b {mode}: not every request finished")
+        if st["host_syncs"] != sampling[0]:
+            raise AssertionError(f"4b {mode}: {st['host_syncs']:.0f} host "
+                                 f"fetches over {sampling[0]} sampling steps")
+        dec, pre = int(st["decode_calls"]), int(st["prefill_calls"])
+        if lc["decode"] != L * dec or lc["prefill"] != L * pre:
+            raise AssertionError(f"4b {mode}: K1 launches {lc} != {L} layers "
+                                 f"x {dec} decode / {pre} prefill calls")
+        table = phase_table(tel)
+        if mode == "async" and table.get("overlap", {}).get("count", 0) < 1:
+            raise AssertionError("4b async: the overlap never engaged")
+        runs[mode].append({"out": out, "sig": sig, "record": {
+            "steps": st["steps"], "wall_s": st["wall_s"],
+            "decode_tok_per_s": st["decode_tok_per_s"],
+            "total_tok_per_s": st["total_tok_per_s"],
+            "mean_ttft_s": st["mean_ttft_s"],
+            "host_syncs": st["host_syncs"], "sampling_steps": sampling[0],
+            "decode_calls": dec, "prefill_calls": pre,
+            "k1_launches": {"decode": lc["decode"], "prefill": lc["prefill"]},
+            "phases": table, "syncs_in_submit_step": 0}})
+        print(f"  4b (a) {mode:8s} {st['steps']:.0f} steps in "
+              f"{st['wall_s']:.2f} s | decode {st['decode_tok_per_s']:.1f} "
+              f"tok/s | TTFT {st['mean_ttft_s'] * 1e3:.1f} ms | step p50 "
+              f"{table['step']['p50_ms']:.2f} ms | host fetches "
+              f"{st['host_syncs']:.0f} = sampling steps | K1 {lc['decode']} "
+              f"decode / {lc['prefill']} prefill = {L} x calls | 0 syncs in "
+              f"_submit_step (sync debug mode 'error')", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    lock, asy = runs["lockstep"][0], runs["async"][0]
+    same_as_phase4 = sum(lock["out"][r].tokens == lock_out[r].tokens
+                         for r in lock_out)
+    repeats = {m: sum(rs[0]["out"][r].tokens == rs[-1]["out"][r].tokens
+                      for r in rs[0]["out"]) for m, rs in runs.items()}
+    print(f"  4b (a) lockstep with telemetry vs phase 4's run: "
+          f"{same_as_phase4} of {len(lock_out)} requests token for token; "
+          f"each mode's two runs: {repeats}", flush=True)
+    rule = check_tokens("(a) async vs lockstep", model, params, asy["out"],
+                        lock["out"], asy["sig"], lock["sig"], 0.25)
+
+    def each(mode, name, key):
+        return " / ".join(
+            f"{r['record']['phases'].get(name, {}).get(key, 0.0):.3f}"
+            for r in runs[mode])
+
+    # p50: the registry histogram's bucket estimate; mean: total / count
+    for key in ("p50_ms", "mean_ms"):
+        print(f"  4b (a) step phases, {key[:-3]} ms of each run (lockstep "
+              f"| async): " + "; ".join(
+                  f"{n} {each('lockstep', n, key)} | {each('async', n, key)}"
+                  for n in FD_PHASES[:-1]), flush=True)
+    print("  4b (a) sync share of a step: " + " / ".join(
+        f"{r['record']['phases']['sync_share']:.4f}"
+        for r in runs["lockstep"]) + " | " + " / ".join(
+        f"{r['record']['phases']['sync_share']:.4f}"
+        for r in runs["async"]), flush=True)
+    return {"order": list(FD_ORDER),
+            "lockstep": [r["record"] for r in runs["lockstep"]],
+            "async": [r["record"] for r in runs["async"]],
+            "token_rule": rule, "lockstep_equal_to_phase_4": same_as_phase4,
+            "repeat_equal": repeats}
+
+
+def fd_front_door(model, params, scfg, rng) -> dict:
+    """(c): backpressure, two cancels mid-flight, a deadline, a stream."""
+    V, gen = model.cfg.vocab_size, FRONT["gen"]
+    reqs = random_requests(rng, V, FRONT["requests"], gen, FRONT["lo"],
+                           FRONT["hi"])
+    eng = Engine(model, params, dataclasses.replace(
+        scfg, async_step=True, max_waiting=2))
+    a = eng.add_request(**reqs[0])
+    b = eng.add_request(**reqs[1])
+    try:
+        eng.add_request(**reqs[2])
+        raise AssertionError("4b (c): a third waiting request was admitted "
+                             "past max_waiting 2")
+    except EngineOverloaded:
+        pass
+    eng.step_async()
+    c = eng.add_request(**reqs[2], deadline_s=FRONT["deadline_s"])
+    d = eng.add_request(**reqs[3])
+    for _ in range(10):
+        eng.step_async()
+    if not (eng.cancel(a) and eng.cancel(b)) or eng.cancel(a):
+        raise AssertionError("4b (c): cancel of a running request")
+    streamed = list(eng.stream(reqs[4]["prompt"],
+                               max_new_tokens=FRONT["stream_gen"]))
+    while eng.scheduler.has_work or eng.pending_step:
+        eng.step_async()
+    recs = eng.pop_finished()
+    no_leaks("(c)", eng)
+    e = max(recs)
+    want = {a: "cancelled", b: "cancelled", c: "deadline", d: "length",
+            e: "length"}
+    got = {r: recs[r].finish_reason for r in want}
+    if got != want or recs[e].tokens != streamed or \
+            len(streamed) != FRONT["stream_gen"] or \
+            len(recs[d].tokens) != gen or \
+            not all(0 < len(recs[r].tokens) < gen for r in (a, b)) or \
+            len(recs[c].tokens) >= gen:
+        raise AssertionError(f"4b (c): finish reasons {got} (want {want}), "
+                             f"lengths { {r: len(recs[r].tokens) for r in want} }"
+                             f", streamed {len(streamed)}")
+    res = {"finish_reasons": {str(r): v for r, v in got.items()},
+           "tokens": {str(r): len(recs[r].tokens) for r in want},
+           "streamed": len(streamed)}
+    print(f"  4b (c) EngineOverloaded past max_waiting 2; cancelled 2 running "
+          f"requests at {len(recs[a].tokens)} and {len(recs[b].tokens)} of "
+          f"{gen} tokens; deadline {FRONT['deadline_s']} s at "
+          f"{len(recs[c].tokens)} tokens; stream() gave "
+          f"{len(streamed)} tokens = its record; allocator check clean, 0 "
+          f"live / 0 held", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def fd_chaos(model, params, rng) -> dict:
+    """(d): one step-pinned fault schedule, full audits, lockstep and
+    async, against a fault-free lockstep run."""
+    V = model.cfg.vocab_size
+    reqs = random_requests(rng, V, CHAOS["requests"], CHAOS["gen"],
+                           CHAOS["lo"], CHAOS["hi"])
+    ccfg = ServeConfig(max_seqs=CHAOS["requests"], block_size=16,
+                       max_len=CHAOS["hi"] + CHAOS["gen"], chunk_size=128,
+                       audit_level="full")
+    victim = 3
+    want_fired = {"alloc_hold": 1, "sync_error": 1, "callback_error": 1,
+                  "slow_step": 1}
+
+    def run(mode, faults):
+        tel = Telemetry(enabled=True)
+        eng = Engine(model, params, dataclasses.replace(
+            ccfg, async_step=mode == "async"), telemetry=tel, faults=faults)
+        sig = schedule_signature(eng)
+        out, st = eng.run([dict(r, on_token=lambda t, d: None)
+                           for r in reqs])
+        torch.cuda.synchronize()
+        no_leaks(f"(d) {mode}", eng)
+        del eng
+        torch.cuda.empty_cache()
+        return out, st, sig, phase_table(tel)
+
+    ref, _, ref_sig, _ = run("lockstep", None)
+    res = {}
+    for mode in ("lockstep", "async"):
+        fi = FaultInjector([Fault("alloc_hold", step=5, hold_steps=3),
+                            Fault("sync_error", step=9),
+                            Fault("callback_error", rate=1.0, rid=victim),
+                            Fault("slow_step", step=12, delay_s=0.02)],
+                           seed=0)
+        out, st, sig, table = run(mode, fi)
+        reasons = {r: out[r].finish_reason for r in out}
+        want = {r: "error" if r == victim else "length" for r in out}
+        if reasons != want or dict(fi.fired) != want_fired or \
+                st["faults_injected"] != 4 or st["recoveries"] != 1 or \
+                st["callback_errors"] != 1:
+            raise AssertionError(
+                f"4b (d) {mode}: reasons {reasons}, fired {dict(fi.fired)}, "
+                f"faults_injected {st['faults_injected']}, recoveries "
+                f"{st['recoveries']}, callback_errors "
+                f"{st['callback_errors']}")
+        rule = check_tokens(f"(d) {mode} vs fault-free", model, params, out,
+                            ref, sig, ref_sig, 0.25, prefix_ok=(victim,))
+        audit = table.get("audit", {})
+        res[mode] = {"fired": dict(fi.fired),
+                     "faults_injected": st["faults_injected"],
+                     "recoveries": st["recoveries"], "token_rule": rule,
+                     "audit_ms_per_step": audit.get("mean_ms", 0.0),
+                     "audits": audit.get("count", 0), "steps": st["steps"]}
+        print(f"  4b (d) {mode:8s} faults {dict(fi.fired)} -> rid {victim} "
+              f"'error', the rest 'length'; faults_injected 4, recoveries 1; "
+              f"full audit {audit.get('mean_ms', 0.0):.3f} ms host a step "
+              f"(p50 {audit.get('p50_ms', 0.0):.3f}) over "
+              f"{audit.get('count', 0)} steps; allocator clean, 0 held",
+              flush=True)
+    return res
+
+
+def fd_crash_restore(model, params, rng) -> dict:
+    """(e): snapshot to a file at step K - 1, crash at K, restore into a
+    fresh engine, run to the end; against an uninterrupted run."""
+    V, gen, K = model.cfg.vocab_size, CRASH["gen"], CRASH["step"]
+    reqs = random_requests(rng, V, CRASH["greedy"], gen, CRASH["lo"],
+                           CRASH["hi"]) + random_requests(
+        rng, V, CRASH["sampled"], gen, CRASH["lo"], CRASH["hi"],
+        temperature=0.8)
+    sampled = set(range(CRASH["greedy"], len(reqs)))
+    ecfg = ServeConfig(max_seqs=len(reqs), block_size=16,
+                       max_len=CRASH["hi"] + gen, chunk_size=128)
+    res = {}
+    for mode in ("lockstep", "async"):
+        cfg = dataclasses.replace(ecfg, async_step=mode == "async")
+        eng = Engine(model, params, cfg)
+        ref, _ = eng.run([dict(r) for r in reqs])
+        eng.reset()
+        eng.faults = FaultInjector([Fault("crash", step=K)])
+        for r in reqs:
+            eng.add_request(**r)
+        step = eng.step_async if cfg.async_step else eng.step
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "engine.rsrv")
+            save_s = None
+            try:
+                while eng.scheduler.has_work or eng.pending_step:
+                    if eng._steps == K - 1 and save_s is None:
+                        t0 = time.perf_counter()
+                        save_snapshot(eng, path)
+                        save_s = time.perf_counter() - t0
+                    step()
+                raise AssertionError(f"4b (e) {mode}: no crash at step {K}")
+            except CrashError:
+                pass
+            size = os.path.getsize(path)
+            del eng
+            torch.cuda.empty_cache()
+            eng = Engine(model, params, cfg)
+            t0 = time.perf_counter()
+            eng.restore(load_snapshot(path))
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        out, _ = eng.run()
+        recs = {**eng.pop_finished(), **out}
+        no_leaks(f"(e) {mode}", eng)
+        if set(recs) != set(ref) or any(len(recs[r].tokens) != gen
+                                        for r in recs):
+            raise AssertionError(f"4b (e) {mode}: not every request finished "
+                                 f"after the restore")
+        must = set(ref) if mode == "lockstep" else set(ref) - sampled
+        diff = [r for r in must if recs[r].tokens != ref[r].tokens]
+        if diff:
+            raise AssertionError(f"4b (e) {mode}: rids {diff} differ from "
+                                 f"the uninterrupted run")
+        same_sampled = sum(recs[r].tokens == ref[r].tokens for r in sampled)
+        res[mode] = {"snapshot_bytes": size, "save_s": save_s,
+                     "load_restore_s": load_s,
+                     "sampled_equal": same_sampled}
+        print(f"  4b (e) {mode:8s} snapshot at step {K - 1}: {size} bytes, "
+              f"saved in {save_s:.3f} s; crash at step {K}; loaded and "
+              f"restored into a fresh engine in {load_s:.3f} s; "
+              f"{len(must)} requests equal the uninterrupted run token for "
+              f"token ({same_sampled} of {len(sampled)} at temperature 0.8 "
+              f"equal, all finished)", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_front_door(model, params, scfg, reqs, lock_out, seed: int) -> dict:
+    """Phase 4b on phase 4's model; its own generator ``[seed, 4, 2]``."""
+    t_start = time.time()
+    card = nvidia_smi_line()
+    print(f"phase 4b: the front door and crash safety at full width ({card})",
+          flush=True)
+    rng = np.random.default_rng([seed, 4, 2])
+    probe = sync_probe()
+    print("  4b (b) sync debug mode 'error': " + "; ".join(
+        f"{k} {'synchronizes' if v else 'does not'}"
+        for k, v in probe.items()), flush=True)
+    res = {"card": card, "sync_probe": probe}
+    res["async_vs_lockstep"] = fd_async_vs_lockstep(model, params, scfg,
+                                                    reqs, lock_out)
+    res["front_door"] = fd_front_door(model, params, scfg, rng)
+    res["chaos"] = fd_chaos(model, params, rng)
+    res["crash_restore"] = fd_crash_restore(model, params, rng)
+    res["seconds"] = time.time() - t_start
+    print(f"  4b: {res['seconds']:.1f} s ({card})", flush=True)
     return res
 
 
@@ -5264,10 +5725,15 @@ def main() -> int:
     print("phase 6b: K4 time at the main path's tiles (f32)", flush=True)
     k4_entry, k4_sweep = time_k4()
     lap("phases 6-6b")
-    main_res = phase_main_path(rng, args.quick, args.profile)
+    main_res = phase_main_path(rng, args.quick, args.profile, args.seed)
     lap("phase 4")
+    front = main_res["front_door"]
+    phase_s["phase 4b (within phase 4)"] = front["seconds"]
     kernels[0]["launches"] = main_res["k1_launches"]["decode"]
     kernels[1]["launches"] = main_res["k1_launches"]["prefill"]
+    for k, entry in (("decode", kernels[0]), ("prefill", kernels[1])):
+        entry["launches_front_door_async"] = \
+            front["async_vs_lockstep"]["async"][0]["k1_launches"][k]
     kernels[0]["build"] = kernels[1]["build"] = build_summary(k1_build)
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], worst)

@@ -10,6 +10,10 @@
       --reduced --spec-k 3 --draft-ratio 0.5 [--spec-ema 0.5] \
       [--draft-cache-dtype int8] [--metrics] [--trace-out t.json] --device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --reduced --async-step [--audit-level full] [--degrade] \
+      [--snapshot-out s.rsrv | --restore s.rsrv] --device cpu
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --reduced --prune-ratio 0.5 [--obspa] --device cpu
 
@@ -48,12 +52,29 @@ families.  ``--metrics`` turns telemetry on and prints the step-phase table
 and the Prometheus text after the run; ``--trace-out PATH`` writes a
 Chrome trace of it (load it in https://ui.perfetto.dev).
 
+``--async-step`` drives the engine's double-buffered ``step_async``: step
+N+1 is planned and dispatched while step N's device work is in flight
+(outputs stay byte-identical at temperature 0).  ``--audit-level
+{off,alloc,full}`` turns on runtime invariant auditing (allocator / full
+cache conservation checked every ``--audit-interval`` steps, with
+quarantine-and-recover on violation) and ``--degrade`` enables the
+load-shedding ladder.
+
+On SIGTERM/SIGINT the server drains gracefully: it stops admitting,
+finishes in-flight requests, and — with ``--snapshot-out PATH`` — writes an
+engine snapshot whose waiting queue a fresh process can resume
+byte-identically via ``--restore PATH`` (which rebuilds the engine from the
+snapshot's own ServeConfig; CLI engine flags are ignored).
+``--drain-timeout S`` bounds any drain: stragglers past the deadline are
+force-preempted back to the waiting queue instead of blocking shutdown.
+
 ``generate`` (sequential, token-by-token over a contiguous cache) is kept as
 the correctness oracle the engine is tested against.
 """
 from __future__ import annotations
 
 import argparse
+import signal
 import time
 
 import numpy as np
@@ -97,6 +118,16 @@ def synthetic_prompts(vocab_size: int, requests: int, prompt_len: int,
     lens = [max(4, prompt_len - (i % 4) * (prompt_len // 8))
             for i in range(requests)]
     return toks, lens
+
+
+def drain_on_signal(stop: dict):
+    """The SIGTERM / SIGINT handler: it only records the signal in
+    ``stop``; ``Engine.run`` notices between steps and the server then
+    drains (and snapshots).  It does no engine work itself, so a signal
+    mid-step is safe."""
+    def handler(signum, frame):
+        stop.setdefault("sig", signum)
+    return handler
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -145,6 +176,33 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome-trace JSON of the run "
                          "(load in https://ui.perfetto.dev)")
+    ap.add_argument("--async-step", action="store_true",
+                    help="double-buffered engine steps: plan/dispatch "
+                         "step N+1 while step N's device work is in "
+                         "flight (outputs stay byte-identical at "
+                         "temperature 0)")
+    ap.add_argument("--audit-level", default="off",
+                    choices=("off", "alloc", "full"),
+                    help="runtime invariant auditing after each step "
+                         "(alloc: allocator conservation; full: cache "
+                         "tables + prefix index too)")
+    ap.add_argument("--audit-interval", type=int, default=1,
+                    help="audit every N steps (amortizes full audits)")
+    ap.add_argument("--degrade", action="store_true",
+                    help="graceful degradation under pool pressure: "
+                         "shed aged waiting requests, clamp spec K, "
+                         "pause prefix-cache admission")
+    ap.add_argument("--drain-timeout", type=float, default=0.0,
+                    help="drain() deadline in seconds: running requests "
+                         "past it are force-preempted to the waiting "
+                         "queue (0 = unbounded)")
+    ap.add_argument("--snapshot-out", default="",
+                    help="write an engine snapshot here after a "
+                         "SIGTERM/SIGINT drain (resume via --restore)")
+    ap.add_argument("--restore", default="",
+                    help="restore engine state from a snapshot file and "
+                         "resume its waiting queue (engine flags come "
+                         "from the snapshot, not the CLI)")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run without a GPU (default: the CUDA "
                          "device; fails when there is none)")
@@ -201,28 +259,62 @@ def main(argv: list[str] | None = None) -> None:
         telemetry = Telemetry(enabled=True)
     toks, lens = synthetic_prompts(cfg.vocab_size, args.requests,
                                    args.prompt_len, args.seed)
-    engine = Engine(model, params, ServeConfig(
-        max_seqs=args.max_seqs, block_size=args.block_size,
-        max_len=args.max_len or (args.prompt_len + args.gen),
-        num_blocks=args.num_blocks, seed=args.seed,
-        chunk_size=args.chunk_size, prefill_budget=args.prefill_budget,
-        prefix_caching=not args.no_prefix_caching,
-        spec_k=args.spec_k, spec_ema=args.spec_ema,
-        draft_cache_dtype=args.draft_cache_dtype,
-        cache_dtype=args.cache_dtype), draft_model=draft_model,
-        draft_params=draft_params, telemetry=telemetry, device=device)
+    if args.restore:
+        from repro_torch.serve import load_snapshot, restore_engine
+        engine = restore_engine(
+            load_snapshot(args.restore), model, params,
+            draft_model=draft_model, draft_params=draft_params,
+            telemetry=telemetry, device=device)
+        print(f"restored snapshot {args.restore}: "
+              f"{len(engine.scheduler.waiting)} waiting / "
+              f"{len(engine.scheduler.running)} running requests")
+    else:
+        engine = Engine(model, params, ServeConfig(
+            max_seqs=args.max_seqs, block_size=args.block_size,
+            max_len=args.max_len or (args.prompt_len + args.gen),
+            num_blocks=args.num_blocks, seed=args.seed,
+            chunk_size=args.chunk_size, prefill_budget=args.prefill_budget,
+            prefix_caching=not args.no_prefix_caching,
+            spec_k=args.spec_k, spec_ema=args.spec_ema,
+            draft_cache_dtype=args.draft_cache_dtype,
+            cache_dtype=args.cache_dtype, async_step=args.async_step,
+            audit_level=args.audit_level,
+            audit_interval=args.audit_interval, degrade=args.degrade,
+            drain_timeout_s=args.drain_timeout), draft_model=draft_model,
+            draft_params=draft_params, telemetry=telemetry, device=device)
     if args.spec_k > 0 and not engine.spec_active:
         print("speculative decoding gated off for this family "
               "(recurrent state cannot be rewound)")
-
-    t0 = time.time()
-    for i in range(args.requests):
-        engine.add_request([int(t) for t in toks[i, :lens[i]]],
-                           max_new_tokens=args.gen,
-                           temperature=args.temperature)
-    print(f"engine ready on {device}", flush=True)
-    out, stats = engine.run()
-    dt = time.time() - t0
+    # graceful shutdown: a signal flips the flag, run() notices between
+    # steps, then the engine drains (finish in-flight, refuse admissions)
+    # and optionally snapshots; the previous handlers come back after
+    stop: dict[str, int] = {}
+    prev = {sig: signal.signal(sig, drain_on_signal(stop))
+            for sig in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        t0 = time.time()
+        if not args.restore:
+            for i in range(args.requests):
+                engine.add_request([int(t) for t in toks[i, :lens[i]]],
+                                   max_new_tokens=args.gen,
+                                   temperature=args.temperature)
+        print(f"engine ready on {device}", flush=True)
+        out, stats = engine.run(stop_when=lambda: "sig" in stop)
+        if "sig" in stop:
+            print(f"signal {stop['sig']}: draining "
+                  f"({len(engine.scheduler.running)} in flight, "
+                  f"{len(engine.scheduler.waiting)} waiting)", flush=True)
+            out.update(engine.drain())
+            if args.snapshot_out:
+                from repro_torch.serve import save_snapshot
+                save_snapshot(engine, args.snapshot_out)
+                print(f"snapshot -> {args.snapshot_out} "
+                      f"({len(engine.scheduler.waiting)} waiting requests "
+                      f"resumable via --restore)", flush=True)
+        dt = time.time() - t0
+    finally:
+        for sig, handler in prev.items():
+            signal.signal(sig, handler)
     n_new = sum(len(r.tokens) for r in out.values())
     print(f"served {len(out)} requests / {n_new} new tokens in {dt:.2f}s")
     if not out:
@@ -236,6 +328,11 @@ def main(argv: list[str] | None = None) -> None:
         print(f"speculative: {stats['spec_cycles']:.0f} cycles | "
               f"acceptance {stats['spec_acceptance']:.1%} "
               f"({stats['spec_accepted']:.0f}/{stats['spec_proposed']:.0f})")
+    rb = ("faults_injected", "recoveries", "requests_shed",
+          "audit_violations", "callback_errors")
+    if any(stats.get(k) for k in rb):
+        print("robustness: " + " | ".join(
+            f"{k} {stats[k]:.0f}" for k in rb if stats.get(k)))
     first = out[min(out)]
     print("sample token ids:", first.tokens[:16])
 
@@ -243,8 +340,8 @@ def main(argv: list[str] | None = None) -> None:
         from repro_torch.obs import prometheus_text
         reg = telemetry.registry
         print("\n-- step phases (per-step wall, us) --")
-        for name in ("step", "plan", "prefill_dispatch", "decode_dispatch",
-                     "sync", "fold"):
+        for name in ("step", "plan", "overlap", "prefill_dispatch",
+                     "decode_dispatch", "sync", "fold", "audit"):
             h = reg.histograms.get("phase/" + name)
             if h is None:
                 continue

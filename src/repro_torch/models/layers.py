@@ -76,7 +76,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     """x: (..., seq, heads, head_dim); positions: (..., seq) int.
     Half-split rotation computed in f32."""
     head_dim = x.shape[-1]
-    freqs = torch.from_numpy(rope_freqs(head_dim, theta)).to(x.device)
+    freqs = torch.from_numpy(rope_freqs(head_dim, theta))
+    if x.is_cuda and type(x) is torch.Tensor:
+        # a real card tensor (not a tracer's fake one): stage the copy in
+        # pinned memory so that it never waits for the device — a blocking
+        # copy of pageable memory synchronizes the stream, twice a layer
+        freqs = freqs.pin_memory().to(x.device, non_blocking=True)
+    else:
+        freqs = freqs.to(x.device)
     angles = positions[..., None].float() * freqs          # (..., seq, hd/2)
     sin = torch.sin(angles)[..., None, :]                  # broadcast heads
     cos = torch.cos(angles)[..., None, :]

@@ -5,8 +5,10 @@ wall clock only — never inside a device call, and no device
 synchronization of its own):
 
   - **phase events**: (step, name, t0, t1) — one per engine-step phase
-    (plan / prefill_dispatch / decode_dispatch / sync / fold), and an
-    enclosing ``step`` phase they nest inside;
+    (plan / prefill_dispatch / decode_dispatch / sync / fold, plus
+    ``overlap`` around the async pipeline's predicted plan+dispatch and
+    ``audit`` around a runtime invariant audit), and an enclosing ``step``
+    phase they nest inside;
   - **span events**: (rid, kind, t) — per-request lifecycle points
     (submit, admit, first_chunk, first_token, preempt, resume, finish);
   - **counter samples**: (t, name, values) — pool occupancy and prefix

@@ -1,5 +1,5 @@
 """Continuous-batching inference engine over the paged KV cache — the
-synchronous core of the reference's ``serve/engine.py``.
+port of the reference's ``serve/engine.py`` (single device).
 
 Two fixed-shape device steps serve every in-flight request:
 
@@ -31,7 +31,44 @@ Host<->device traffic is one upload per device call and ONE fetch per step:
 every sampled token the host needs is stacked into a single tensor and
 brought over once (``stats["host_syncs"]``).  A step that samples nothing
 (prefill chunks that all end before their prompts, no decode row) fetches
-nothing.
+nothing.  The fetch has two halves: its *start*, at dispatch, copies the
+stacked tensor with ``non_blocking=True`` into a pinned host buffer and
+records a CUDA event; its *wait*, at reconcile, synchronizes on that event
+and reads the buffer.  Uploads are staged through pinned buffers too, so the
+host half of a step (plan, uploads, dispatch) never waits for the device.
+Each in-flight record keeps its pinned buffers until its reconcile has
+waited.  On ``device="cpu"`` the same code runs without pinning or events.
+
+Async double-buffered stepping (``step_async``; ``async_step`` makes
+``run`` / ``stream`` / ``drain`` use it): while step N's device work is in
+flight, the host predicts its fold (decode growth is deterministic; only
+sampled *values* are unknown), plans and dispatches step N+1 from that
+predicted state — feeding tokens still on the device with ``torch.where``,
+so they never pass through the host — and only then waits for step N.
+Speculative decoding and any round that could preempt fall back to
+lockstep (``_can_overlap``).  A token that finishes its request while the
+next step flies cancels that request's row in the newer record and hands
+back the blocks the predicted plan reserved (``_cancel_inflight``).  Every
+pool read and write stays on the engine's one stream, so an in-flight write
+into a block freed that way lands before the block's next owner writes it.
+
+The front door: ``add_request(..., on_token=, deadline_s=)`` streams tokens
+to a callback (hardened: a callback that raises fails only its own request)
+and deadlines a request from submission; ``cancel``; ``stream`` (an
+iterator); ``max_waiting`` backpressure (``EngineOverloaded``);
+``pop_finished``; ``drain`` (stop admitting, finish what runs, optionally
+force-preempt stragglers back to the waiting queue at a deadline).
+
+Crash safety (``Engine(..., faults=)``, ``repro_torch.serve.faults``):
+seeded fault injection at fixed seams (step start, the fetch's wait, the
+streaming emit; ``faults=None`` keeps every hook behind one ``is None``
+check); runtime invariant audits before dispatch (``audit_level``) that
+quarantine into a rebuild of derived host state (``_recover``); a fetch
+that fails past its retries aborts the step (``_abort_step``, split on
+whether the async pipeline already predicted it); the degradation ladder
+under sustained pool pressure (``degrade``: shed aged waiting requests,
+clamp the planned speculative K to 1, pause prefix-cache admission); and
+``snapshot`` / ``restore`` (``repro_torch.serve.snapshot``).
 
 Speculative decoding (``spec_k > 0`` plus a draft model): a *draft* loop of
 K pruned-model decode steps and a *verify* step of shape (max_seqs, K) that
@@ -50,10 +87,11 @@ reference fuses them into one jitted call).
 Telemetry (``Engine(..., telemetry=...)``, ``repro_torch.obs``): the run
 counters live in the handle's registry and ``run()``'s stats are a diff of
 two snapshots; an enabled handle also records per-step phase timers (plan /
-prefill dispatch / decode-or-spec dispatch / the one fetch / fold), request
-lifecycle spans, TTFT and inter-token histograms, pool gauges and the
-speculative acceptance histograms.  All of it is host clocks around calls
-the engine makes anyway: no device synchronization is added, nothing
+prefill dispatch / decode-or-spec dispatch / the fetch's wait / fold, the
+async ``overlap`` around the predicted plan and dispatch, the audit),
+request lifecycle spans, TTFT and inter-token histograms, pool gauges and
+the speculative acceptance histograms.  All of it is host clocks around
+calls the engine makes anyway: no device synchronization is added, nothing
 touches a tensor or the generator, so outputs are byte-identical with it on
 or off, and the disabled default reads no clock.
 
@@ -69,9 +107,8 @@ gated off for them: recurrent state is per slot and cannot be rebuilt from
 aliased KV blocks; speculative decoding is gated off for them (no rewind
 of recurrent state), and ``can_handoff_blocks`` is False.
 
-Not in this module yet (later slices of the port): the double-buffered
-``step_async``, fault injection / audits / the degradation ladder,
-snapshots, cluster hand-off and meshes.
+Not in this module yet (later slices of the port): cluster hand-off
+(``export_request`` / ``adopt``), disaggregated roles and meshes.
 """
 from __future__ import annotations
 
@@ -86,7 +123,8 @@ import torch.nn.functional as F
 from repro_torch.device import resolve_device
 from repro_torch.kernels.paged_attention import CACHE_DTYPES
 from repro_torch.obs import DEFAULT_TIME_BUCKETS, NULL_CTX, Telemetry
-from repro_torch.serve.kv_cache import PagedCache
+from repro_torch.serve.faults import CrashError, FaultError, FaultInjector
+from repro_torch.serve.kv_cache import OutOfBlocks, PagedCache
 from repro_torch.serve.scheduler import FCFSScheduler, Request, RequestState
 
 # engine run counters, registry-backed (repro_torch.obs): the keys double as
@@ -97,7 +135,12 @@ _RUN_COUNTERS = ("steps", "decode_tokens", "prefill_tokens",
                  # target device calls made (each runs every layer once);
                  # a spec cycle adds K draft decode calls and one verify,
                  # and in spec mode every prefill call one draft prefill
-                 "decode_calls", "prefill_calls")
+                 "decode_calls", "prefill_calls",
+                 # fault tolerance: injected faults, recoveries (retried
+                 # fetches, aborted steps, rebuilds, unjams), shed
+                 # requests, failed audits, raising stream callbacks
+                 "faults_injected", "recoveries", "requests_shed",
+                 "audit_violations", "callback_errors")
 
 # pool entries a copy-on-write block copy moves: KV plus the per-(token,
 # head) scale pools sharing block addressing
@@ -106,6 +149,10 @@ _POOL_KEYS = ("k", "v", "k_scale", "v_scale")
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
+    """The reference's ``ServeConfig`` on one device.  ``donate_pools`` has
+    no counterpart (the port's pools are updated in place, never donated);
+    ``role`` and ``migrate_on_alias`` belong to the cluster and mesh
+    slices of the port."""
     max_seqs: int = 8                 # decode slots = max batch per step
     block_size: int = 16              # tokens per KV block
     max_len: int = 512                # per-sequence token capacity
@@ -125,6 +172,40 @@ class ServeConfig:
                                       # "int8"/"fp8_e4m3" quantize with
                                       # per-write scale pools and fused
                                       # kernel dequant
+    async_step: bool = False          # run()/stream()/drain() drive
+                                      # step_async(): double-buffered
+                                      # submit/reconcile pipeline; outputs
+                                      # stay byte-identical at temp 0
+    max_waiting: int = 0              # backpressure: add_request raises
+                                      # EngineOverloaded once this many
+                                      # requests wait (0 = unbounded)
+    audit_level: str = "off"          # runtime invariant auditing: "off" |
+                                      # "alloc" (allocator conservation) |
+                                      # "full" (the PagedCache.check()
+                                      # oracle); a violation quarantines
+                                      # into the recover path instead of
+                                      # serving from corrupt state
+    audit_interval: int = 1           # audit every N engine steps
+    degrade: bool = False             # graceful-degradation ladder under
+                                      # sustained pool pressure: shed
+                                      # aged waiting requests, clamp
+                                      # speculative K to 1, pause
+                                      # prefix-cache admission
+    shed_queue_age_s: float = 0.5     # degraded: shed waiting requests
+                                      # older than this (finish_reason
+                                      # "shed" — a retriable rejection)
+    pressure_threshold: float = 0.125 # pressured when available blocks
+                                      # fall below this pool fraction
+                                      # (or the waiting queue is full)
+    pressure_window: int = 3          # consecutive pressured (calm)
+                                      # steps to engage (disengage)
+    drain_timeout_s: float = 0.0      # drain() deadline: running requests
+                                      # still unfinished after this many
+                                      # seconds are force-preempted into
+                                      # the waiting queue (waiting-with-
+                                      # prefix, snapshotable) so a
+                                      # straggler cannot stall a rolling
+                                      # restart (0 = unbounded)
 
     @property
     def blocks_per_seq(self) -> int:
@@ -135,6 +216,21 @@ class ServeConfig:
             return self.num_blocks
         # worst case every slot full, +1 for the reserved null block
         return self.max_seqs * self.blocks_per_seq + 1
+
+
+class EngineOverloaded(RuntimeError):
+    """Backpressure-aware admission (ServeConfig.max_waiting): the waiting
+    queue is full (or the engine is draining), so ``add_request`` refuses
+    instead of growing host state without bound.  Callers shed load or
+    retry later."""
+
+
+class AuditViolation(RuntimeError):
+    """A runtime invariant audit (ServeConfig.audit_level) failed AND the
+    recovery rebuild could not restore a consistent state — the engine
+    refuses to keep serving from memory it cannot trust.  The recoverable
+    case never raises: it is counted (``audit_violations``,
+    ``recoveries``) and serving continues."""
 
 
 @dataclasses.dataclass
@@ -151,7 +247,44 @@ class FinishedRequest:
                                       # first token (0 for 1-token requests)
     spec_proposed: int = 0            # draft tokens offered to verification
     spec_accepted: int = 0            # draft tokens the target accepted
-    finish_reason: str = "length"     # stop | length
+    finish_reason: str = "length"     # stop | length | cancelled |
+                                      # deadline | shed (load shedding) |
+                                      # error (callback raise / fault)
+
+
+@dataclasses.dataclass
+class _Inflight:
+    """One dispatched-but-unreconciled engine step: the async pipeline's
+    in-flight record.
+
+    Holds the plan, the device tensors the step's one fetch reads, and the
+    fold metadata captured *at submit time* — which rows sample a token
+    (``emit``), where each sampling request's token lives in the fetch
+    tensors (``src``, the next step's device-side token feed), and rows a
+    later reconcile cancelled (mispredicted finishes) whose samples must be
+    discarded.  ``folded`` marks that ``_predict_fold`` already advanced the
+    host cursors, so ``_reconcile`` only materializes token values.  The
+    fetch's started copy — its host buffer, the CUDA event recorded after
+    it, the layout of the stacked values — and the step's pinned upload
+    buffers live here until the reconcile has waited."""
+    plan: Any
+    running: list[RequestState]
+    fetch: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    pre_rows: list[tuple[RequestState, int]] = \
+        dataclasses.field(default_factory=list)      # sampled prefill rows
+    decode_rows: list[tuple[RequestState, int, bool]] = \
+        dataclasses.field(default_factory=list)      # (state, slot, emit)
+    spec_meta: list[tuple[RequestState, int, int]] = \
+        dataclasses.field(default_factory=list)
+    src: dict[int, tuple[str, int]] = \
+        dataclasses.field(default_factory=dict)      # rid -> (tensor, slot)
+    cancelled: set[int] = dataclasses.field(default_factory=set)
+    folded: bool = False
+    host: torch.Tensor | None = None                 # the fetch's buffer
+    event: Any = None                                # torch.cuda.Event
+    layout: list[tuple[str, tuple[int, ...]]] = \
+        dataclasses.field(default_factory=list)
+    pins: list[torch.Tensor] = dataclasses.field(default_factory=list)
 
 
 def _first_leaf(tree) -> torch.Tensor:
@@ -162,9 +295,15 @@ def _first_leaf(tree) -> torch.Tensor:
 
 
 class Engine:
+    # extra fetch attempts before a step is aborted: the fetch's host
+    # buffer stays alive across attempts, so a retried fetch reads the
+    # identical values
+    _sync_retries = 2
+
     def __init__(self, model, params, cfg: ServeConfig | None = None,
                  draft_model=None, draft_params=None,
-                 telemetry: Telemetry | None = None, device=None):
+                 telemetry: Telemetry | None = None, device=None,
+                 faults: FaultInjector | None = None):
         if not model.cfg.has_decode:
             raise ValueError(f"{model.cfg.name} has no decode path")
         if model.cfg.family == "vlm":
@@ -178,6 +317,15 @@ class Engine:
         self.model = model
         self.params = params
         self.cfg = cfg or ServeConfig()
+        # fault injection: None keeps every hook behind one attribute
+        # check.  A plain attribute, not reset() state, so tests can attach
+        # and detach an injector mid-life.
+        self.faults = faults
+        if self.cfg.audit_level not in ("off", "alloc", "full"):
+            raise ValueError(f"audit_level {self.cfg.audit_level!r} "
+                             f"not in ('off', 'alloc', 'full')")
+        if self.cfg.audit_interval < 1:
+            raise ValueError("audit_interval must be >= 1")
         # host-side only: phase timers, lifecycle spans and gauges never
         # touch a tensor or the generator; the disabled default is a no-op
         # and the registry's run counters are always live
@@ -260,7 +408,19 @@ class Engine:
         self._preempt_wall: dict[int, float] = {}
         self._preempt_stall: dict[int, float] = {}
         self._chunked: set[int] = set()   # rids whose first chunk is logged
+        # async pipeline + serving front-door state
+        self._pending: _Inflight | None = None
+        self._pins: list[torch.Tensor] = []    # the submitting step's
+        self._on_token: dict[int, Any] = {}    # rid -> streaming callback
+        self._deadline: dict[int, float] = {}  # rid -> absolute wall time
         self._drained = 0    # scheduler.finished entries already reported
+        # fault-tolerance / degradation state
+        self._tick = 0                  # monotonic hook tick: hold expiry
+        self._fault_held: list[tuple[int, list[int]]] = []
+        self._draining = False          # drain(): no new admissions
+        self._degraded = False          # degradation ladder engaged
+        self._pressure_run = 0
+        self._calm_run = 0
 
     # ----- device steps -----
     def _sample(self, logits: torch.Tensor, temps: np.ndarray,
@@ -268,12 +428,13 @@ class Engine:
         """Greedy rows take the argmax; rows with temperature > 0 draw from
         ``softmax(logits / T)`` with the engine's generator.  ``temps`` is
         the host copy, so an all-greedy batch draws nothing; ``t_dev`` is
-        its device copy where the caller uploaded one."""
+        its device copy, which the callers send in their call's one
+        upload."""
         greedy = logits.argmax(dim=-1)
         if not (temps > 0).any():
             return greedy.to(torch.int32)
-        t = torch.from_numpy(temps).to(logits.device) if t_dev is None \
-            else t_dev
+        t = self._upload(temps.view(np.int32))[0].view(torch.float32) \
+            if t_dev is None else t_dev
         probs = torch.softmax(logits.float() / t.clamp(min=1e-6)[:, None],
                               dim=-1)
         sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
@@ -403,11 +564,20 @@ class Engine:
 
     def _upload(self, *arrays: np.ndarray) -> list[torch.Tensor]:
         """One host->device copy for all of a device call's int32 operands
-        (a float32 array rides as its bits): they are packed into one
-        buffer and handed back as int32 views."""
-        flat = np.concatenate([a.reshape(-1) for a in arrays]).astype(
-            np.int32, copy=False)
-        dev = torch.from_numpy(flat).to(self.device)
+        (a float32 array rides as its bits, a bool one as 0 / 1): they are
+        packed into one buffer and handed back as int32 views.  On the card
+        the buffer is staged in pinned memory and copied with
+        ``non_blocking=True``, so the copy waits for no earlier device work;
+        the pinned buffer is kept (``_pins``, then the step's in-flight
+        record) until the step's reconcile has waited."""
+        flat = torch.from_numpy(np.concatenate(
+            [a.reshape(-1) for a in arrays]).astype(np.int32, copy=False))
+        if self.device.type == "cuda":
+            pinned = flat.pin_memory()
+            self._pins.append(pinned)
+            dev = pinned.to(self.device, non_blocking=True)
+        else:
+            dev = flat
         out, o = [], 0
         for a in arrays:
             out.append(dev[o:o + a.size].view(a.shape))
@@ -417,19 +587,105 @@ class Engine:
     # ----- request API -----
     def add_request(self, prompt: Iterable[int], max_new_tokens: int = 32,
                     temperature: float = 0.0,
-                    stop_tokens: Iterable[int] = ()) -> int:
-        """Queue one request; returns its rid.  Raises ValueError on
-        degenerate requests (empty prompt, non-positive max_new_tokens,
-        prompt+budget beyond capacity)."""
+                    stop_tokens: Iterable[int] = (),
+                    on_token=None, deadline_s: float | None = None) -> int:
+        """Queue one request; returns its rid.
+
+        ``on_token(token, done)`` streams every sampled token as the step
+        that produced it folds (async mode: one step after dispatch); a
+        tokenless finish (cancellation, deadline) calls it once with
+        ``(None, True)``.  ``deadline_s`` is a wall-clock budget from
+        submission — the request is cancelled (finish_reason "deadline") at
+        the first step boundary past it, admitted or not.  Raises
+        EngineOverloaded when ``max_waiting`` requests already wait
+        (backpressure) or the engine is draining, ValueError on degenerate
+        requests (empty prompt, non-positive max_new_tokens, prompt+budget
+        beyond capacity)."""
+        if self._draining:
+            raise EngineOverloaded(
+                "engine is draining; retry on another instance")
+        if self.cfg.max_waiting and \
+                len(self.scheduler.waiting) >= self.cfg.max_waiting:
+            raise EngineOverloaded(
+                f"waiting queue full ({self.cfg.max_waiting}); "
+                f"shed load or retry")
         rid = self._rid
         self.scheduler.add(Request(     # validates; raises before any
             rid=rid, prompt=tuple(int(t) for t in prompt),   # state lands
             max_new_tokens=max_new_tokens, temperature=temperature,
             stop_tokens=tuple(stop_tokens)))
         self._rid += 1
-        self._submit_wall[rid] = time.time()
+        now = time.time()
+        self._submit_wall[rid] = now
         self.obs.event("submit", rid)
+        if on_token is not None:
+            self._on_token[rid] = on_token
+        if deadline_s is not None:
+            self._deadline[rid] = now + deadline_s
         return rid
+
+    def cancel(self, rid: int, reason: str = "cancelled") -> bool:
+        """Cancel a request by rid; True if it was still live.  Waiting
+        requests finish immediately; running ones retire at the next
+        scheduling round (their blocks free there), and any sample of
+        theirs still in flight is discarded at reconcile."""
+        self._deadline.pop(rid, None)
+        for s in self.scheduler.running:
+            if s.req.rid == rid and not s.done:
+                self._finish_early(s, reason)
+                return True
+        for s in self.scheduler.waiting:
+            if s.req.rid == rid:
+                self._finish_early(s, reason)
+                self.scheduler.drop_waiting(s)
+                return True
+        return False
+
+    def _finish_early(self, s: RequestState, reason: str) -> None:
+        s.stopped = True
+        s.finish_reason = reason
+        rid = s.req.rid
+        self._finish_step[rid] = self._steps
+        self.obs.event("finish", rid, reason=reason)
+        self._emit_cb(s, None, True)
+
+    def _expire_deadlines(self) -> None:
+        if not self._deadline:
+            return
+        now = time.time()
+        for rid, t in list(self._deadline.items()):
+            if now >= t:
+                self.cancel(rid, reason="deadline")
+
+    @property
+    def pending_step(self) -> bool:
+        """True while a dispatched step awaits reconciliation — a caller of
+        ``step_async`` keeps stepping until both the queue and this drain."""
+        return self._pending is not None
+
+    def stream(self, prompt: Iterable[int], max_new_tokens: int = 32,
+               temperature: float = 0.0, stop_tokens: Iterable[int] = (),
+               deadline_s: float | None = None):
+        """Generate one request's tokens as a plain iterator, driving the
+        engine between yields (``step_async`` when ``cfg.async_step``).
+        Other queued requests ride the same steps — continuous batching is
+        unaffected."""
+        buf: list[tuple[int | None, bool]] = []
+        self.add_request(prompt, max_new_tokens=max_new_tokens,
+                         temperature=temperature, stop_tokens=stop_tokens,
+                         on_token=lambda t, d: buf.append((t, d)),
+                         deadline_s=deadline_s)
+        step = self.step_async if self.cfg.async_step else self.step
+        while True:
+            while buf:
+                tok, done = buf.pop(0)
+                if tok is not None:
+                    yield tok
+                if done:
+                    return
+            if not (self.scheduler.has_work or self.pending_step):
+                return
+            step()
 
     def _append_sample(self, s: RequestState, tok: int) -> None:
         self._c["decode_tokens"].inc()
@@ -456,6 +712,38 @@ class Engine:
                 s.finish_reason = "length"
             self._finish_step[rid] = self._steps + 1
             self.obs.event("finish", rid, reason=s.finish_reason)
+        self._emit_cb(s, tok, s.done)
+
+    def _emit_cb(self, s: RequestState, tok: int | None, done: bool
+                 ) -> None:
+        """Deliver one streaming callback, hardened: user code that raises
+        cancels only its own request (finish_reason "error", counted in
+        ``callback_errors``) — it can never unwind the step fold or poison
+        async reconciliation.  The caller's ordinary ``if s.done:
+        _cancel_inflight`` path then rolls back any row already dispatched
+        for the request."""
+        rid = s.req.rid
+        cb = self._on_token.get(rid)
+        if cb is None:
+            return
+        if done:
+            del self._on_token[rid]
+        try:
+            if self.faults is not None and \
+                    self.faults.fire("callback_error", self._steps,
+                                     rid=rid) is not None:
+                self._c["faults_injected"].inc()
+                raise FaultError(f"injected on_token exception (rid {rid})")
+            cb(tok, done)
+        except Exception:
+            self._c["callback_errors"].inc()
+            self._on_token.pop(rid, None)
+            if not done:            # _finish_early re-enters _emit_cb,
+                self._finish_early(s, "error")   # cb is already popped
+                try:
+                    cb(None, True)  # best-effort end-of-stream notice so
+                except Exception:   # a consumer blocked on the stream
+                    pass            # still observes termination
 
     def _phase(self, name: str):
         """Step-phase timer (no-op context when telemetry is disabled)."""
@@ -491,14 +779,16 @@ class Engine:
         self.obs.sample("pool", {
             "free": a.num_free, "live": a.num_live, "cached": a.num_cached,
             "held": a.num_held, "evictions": a.total_evictions,
-            "cow_copies": self._c["cow_copies"].value})
+            "cow_copies": self._c["cow_copies"].value,
+            "degraded": 1.0 if self._degraded else 0.0})
         c = self.cache_host
         if c.prefix_caching:
             self.obs.sample("prefix", {
                 "lookups": c.prefix_lookups, "hits": c.prefix_hits,
                 "hit_rate": c.prefix_hits / max(c.prefix_lookups, 1)})
         # host bubble fraction: the share of step wall spent blocked in the
-        # one fetch (the device time a lockstep step waits for)
+        # fetch's wait (lockstep: about the device time a step waits for;
+        # the async overlap shrinks it)
         hists = self.obs.registry.histograms
         step_h = hists.get("phase/step")
         if step_h is not None and step_h.total > 0:
@@ -511,25 +801,138 @@ class Engine:
     def step(self) -> list[RequestState]:
         """One lockstep engine step: schedule, run prefill chunks + the
         decode (or draft/verify) batch, fetch the results in one transfer,
-        fold them back."""
+        fold them back.  Any async-pipelined step still in flight
+        reconciles first, so mixed ``step``/``step_async`` driving stays
+        safe."""
         with self._phase("step"):
+            self._fault_tick()
+            self._expire_deadlines()
+            self._degrade_tick()
+            # audit BEFORE dispatch: corruption is caught before the next
+            # step's plan and kernels consume it, so recovery can still
+            # rebuild without a corrupt-table step having committed wrong
+            # tokens
+            self._audit_maybe()
+            if self._pending is not None:
+                rec, self._pending = self._pending, None
+                self._reconcile(rec)
             rec = self._submit_step()
             if rec is not None:
                 self._reconcile(rec)
+            self._idle_release_holds()
         if self.obs.enabled:
             self._sample_gauges()
-        return rec["running"] if rec is not None else []
+        return rec.running if rec is not None else []
 
-    def _submit_step(self) -> dict | None:
+    @torch.no_grad()
+    def step_async(self) -> list[RequestState]:
+        """One double-buffered engine step: while the previous step's device
+        work is in flight, predict its host fold (decode growth is
+        deterministic; only sampled *values* are unknown), plan and
+        dispatch the next step from that predicted state — feeding
+        still-unfetched tokens device-to-device — then reconcile the
+        previous step on its (now overlapped) wait.  Falls back to lockstep
+        when prediction is unsafe: speculative decode or possible
+        preemption (``_can_overlap``).  Returns the set the *submitted*
+        step runs; its tokens fold one call later."""
+        with self._phase("step"):
+            out = self._step_async_host()
+            self._idle_release_holds()
+        if self.obs.enabled:
+            self._sample_gauges()
+        return out
+
+    def _step_async_host(self) -> list[RequestState]:
+        self._fault_tick()
+        self._expire_deadlines()
+        self._degrade_tick()
+        self._audit_maybe()             # pre-dispatch, as in step()
+        prev, self._pending = self._pending, None
+        if prev is not None and self._can_overlap(prev):
+            # the overlap phase measures exactly the host work hidden under
+            # the in-flight device step
+            with self._phase("overlap"):
+                self._predict_fold(prev)
+                rec = self._submit_step(prev=prev)
+            self._reconcile(prev, newer=rec)
+            self._pending = rec
+            return rec.running if rec is not None else []
+        if prev is not None:              # lockstep fall-back: resolve
+            self._reconcile(prev)         # the true state, then plan
+        rec = self._submit_step()
+        self._pending = rec
+        return rec.running if rec is not None else []
+
+    def _can_overlap(self, rec: _Inflight) -> bool:
+        """Conservative gate for planning on predicted state, evaluated
+        *before* the predicted plan mutates anything.  Overlap needs (a) no
+        speculative decode — accepted-draft growth is variable, so the next
+        plan depends on the unfetched acceptance counts — and (b) a proof
+        the predicted scheduling round cannot preempt: every running slot's
+        next-position growth must be backable from the free+evictable pool
+        (preemption would re-prefill from ``seq``, which cannot include
+        in-flight token values).  Admission, COW and retirement are all
+        prediction-safe and stay overlapped."""
+        if self.spec_active:
+            return False
+        cache = self.cache_host
+        will_advance = {s.req.rid for s, _, _ in rec.decode_rows}
+        need = 0
+        for s in self.scheduler.running:
+            nc = s.num_cached + (1 if s.req.rid in will_advance else 0)
+            need += cache.blocks_needed(s.slot, nc + 1)
+        return need <= cache.allocator.num_available
+
+    def _predict_fold(self, rec: _Inflight) -> None:
+        """Advance host cursors for a dispatched-but-unfetched step: the
+        device KV writes are deterministic and have (logically) happened, so
+        ``num_cached`` grows now; the sampled token *values* are still in
+        flight and tracked as ``pending`` until reconcile materializes them.
+        Rows cancelled by an earlier reconcile (mispredicted finish) are
+        skipped entirely — their growth never existed."""
+        rec.folded = True
+        for s, _ in rec.pre_rows:
+            if s.req.rid not in rec.cancelled:
+                s.pending += 1
+        for s, _, emit in rec.decode_rows:
+            if s.req.rid in rec.cancelled:
+                continue
+            s.num_cached += 1
+            if emit:
+                s.pending += 1
+            else:                         # still streaming known tokens
+                self._c["prefill_tokens"].inc()
+
+    def _submit_step(self, prev: _Inflight | None = None
+                     ) -> _Inflight | None:
         """The step's host half: schedule, run COW copies, dispatch the
-        prefill and decode (or draft/verify) device calls.  Nothing here
-        waits for the device."""
+        prefill and decode (or draft/verify) device calls, start the fetch.
+        Nothing here waits for the device.  With ``prev`` (async overlap),
+        decode rows whose next token is still in flight read it straight
+        from ``prev``'s device tensors."""
         spec_k = self.cfg.spec_k if self.spec_active else 0
+        # degradation ladder: clamp the *planned* K to 1 under pressure
+        # (cheapest cycles, least speculative pool reservation); the device
+        # shapes stay (B, cfg.spec_k) by construction
+        plan_spec_k = 1 if (spec_k > 1 and self._degraded) else spec_k
         with self._phase("plan"):
-            plan = self.scheduler.plan_step(
-                self.cfg.chunk_size, self.cfg.prefill_budget, spec_k,
-                self.cfg.spec_ema)
+            while True:
+                try:
+                    plan = self.scheduler.plan_step(
+                        self.cfg.chunk_size, self.cfg.prefill_budget,
+                        plan_spec_k, self.cfg.spec_ema,
+                        allow_admission=not self._draining)
+                    break
+                except OutOfBlocks:
+                    # a lone running request outgrew the pool — recover
+                    # instead of crashing the engine
+                    if not self._unjam():
+                        raise
         self._note_transitions(plan)
+        if prev is not None:
+            # _can_overlap proved the pool could back every growth
+            assert not plan.preempted, \
+                "overlap gate let a preemption through"
         running = plan.decode + [s for s, _ in plan.prefill]
         for s in running:
             self._admit_step.setdefault(s.req.rid, self._steps)
@@ -543,87 +946,202 @@ class Engine:
                                                   int(src), int(dst))
             self._c["cow_copies"].inc()
 
-        rec: dict[str, Any] = {"plan": plan, "running": running,
-                               "fetch": {}, "pre_rows": [],
-                               "decode_rows": [], "spec_meta": []}
+        rec = _Inflight(plan=plan, running=running)
+        self._pins = rec.pins
         if plan.prefill:
             sampled: list[RequestState] = []
             with self._phase("prefill_dispatch"):
-                self._dispatch_prefill(plan, spec_k, rec["fetch"], sampled)
-            rec["pre_rows"] = [(s, s.slot) for s in sampled]
+                self._dispatch_prefill(plan, spec_k, rec.fetch, sampled)
+            rec.pre_rows = [(s, s.slot) for s in sampled]
         if plan.decode:
             with self._phase("decode_dispatch"):   # plain, or draft+verify
-                self._dispatch_decode(plan, rec["fetch"], rec["spec_meta"])
-            if not plan.spec:
+                self._dispatch_decode(plan, spec_k, rec.fetch,
+                                      rec.spec_meta, prev)
+            if not (spec_k and plan.spec):
                 # fold metadata, captured before anything moves: emit is
                 # "the model just saw the last known token"
-                rec["decode_rows"] = [(s, s.slot,
-                                       s.num_cached == s.seq_len - 1)
-                                      for s in plan.decode]
+                rec.decode_rows = [(s, s.slot,
+                                    s.num_cached == s.seq_len - 1)
+                                   for s in plan.decode]
+        for s, slot, emit in rec.decode_rows:
+            if emit:
+                rec.src[s.req.rid] = ("dec", slot)
+        for s, slot in rec.pre_rows:
+            rec.src[s.req.rid] = ("pre", slot)
+        if rec.fetch:
+            self._fetch_start(rec)
         return rec
 
-    def _fetch(self, fetch: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-        """The step's single device->host synchronization point: every
-        int32 value the host needs is flattened into one tensor and copied
-        once."""
+    def _fetch_start(self, rec: _Inflight) -> None:
+        """The fetch's first half, at dispatch: every int32 value the host
+        needs is flattened into one tensor and its copy to the host is
+        started.  On the card the copy lands in a pinned buffer with
+        ``non_blocking=True`` and a CUDA event is recorded after it, so
+        nothing here waits for the device."""
+        names = sorted(rec.fetch)
+        flat = torch.cat([rec.fetch[n].reshape(-1) for n in names])
+        rec.layout = [(n, tuple(rec.fetch[n].shape)) for n in names]
+        if flat.is_cuda:
+            rec.host = torch.empty(flat.shape, dtype=flat.dtype,
+                                   pin_memory=True)
+            rec.host.copy_(flat, non_blocking=True)
+            rec.event = torch.cuda.Event()
+            rec.event.record(torch.cuda.current_stream(self.device))
+        else:
+            rec.host = flat.cpu()
+
+    def _fetch(self, rec: _Inflight) -> dict[str, np.ndarray]:
+        """The step's single device->host synchronization point, the fetch's
+        second half: wait for the copy ``_fetch_start`` began, then read the
+        buffer.  A retry after an injected sync error re-reads the same
+        buffer, so a retried fetch is identical."""
         self._c["host_syncs"].inc()
-        names = sorted(fetch)
-        host = torch.cat([fetch[n].reshape(-1) for n in names]).cpu().numpy()
+        if self.faults is not None and \
+                self.faults.fire("sync_error", self._steps) is not None:
+            self._c["faults_injected"].inc()
+            raise FaultError("injected device-sync error")
+        if rec.event is not None:
+            rec.event.synchronize()
+        host = rec.host.numpy()
         out, o = {}, 0
-        for n in names:
-            size = fetch[n].numel()
-            out[n] = host[o:o + size].reshape(tuple(fetch[n].shape))
+        for n, shape in rec.layout:
+            size = int(np.prod(shape))
+            out[n] = host[o:o + size].reshape(shape)
             o += size
         return out
 
-    def _reconcile(self, rec: dict) -> None:
-        """The step's sync half: the ONE fetch, then fold the fetched
-        values into request state."""
-        with self._phase("sync"):
-            vals = self._fetch(rec["fetch"]) if rec["fetch"] else {}
+    def _reconcile(self, rec: _Inflight, newer: _Inflight | None = None
+                   ) -> None:
+        """The step's sync half: the ONE fetch's wait, then fold the fetched
+        values into request state.  For a predict-folded record only token
+        values materialize (``pending`` drains); otherwise this is the
+        lockstep fold.  A token that finishes its request mid-pipeline
+        (stop token, or a cancel that landed while the step flew) cancels
+        the request's row in the ``newer`` in-flight record — the
+        misprediction rollback."""
+        with self._phase("sync"):             # the ONE fetch per step
+            vals: dict | None = {}
+            if rec.fetch:
+                vals = None
+                for attempt in range(1 + self._sync_retries):
+                    try:
+                        vals = self._fetch(rec)
+                        break
+                    except FaultError:
+                        continue
+                if vals is not None and attempt:
+                    # transient sync failure, retried clean: the buffer is
+                    # still alive, so the refetch reads identical values
+                    self._c["recoveries"].inc()
+        if vals is None:                      # persistent sync failure
+            self._abort_step(rec, newer)
+            return
+
         with self._phase("fold"):
-            for s, slot in rec["pre_rows"]:
+            for s, slot in rec.pre_rows:
+                if s.req.rid in rec.cancelled:
+                    continue                  # predict skipped it entirely
+                if rec.folded:
+                    s.pending -= 1
+                if s.stopped:                 # cancelled mid-flight: the
+                    continue                  # sample is discarded
                 self._append_sample(s, int(vals["pre"][slot]))
-            if "out" in vals:
-                self._fold_spec(rec["plan"], vals["out"], vals["acc"],
-                                rec["spec_meta"])
-            for s, slot, emit in rec["decode_rows"]:
-                s.num_cached += 1
-                if not emit:                  # still streaming known tokens
-                    self._c["prefill_tokens"].inc()
-                    continue
-                self._append_sample(s, int(vals["dec"][slot]))
+                if s.done:
+                    self._cancel_inflight(s, newer)
+
+            if "out" in vals:                 # spec cycles are lockstep
+                self._fold_spec(rec.plan, vals["out"], vals["acc"],
+                                rec.spec_meta)
+            else:
+                for s, slot, emit in rec.decode_rows:
+                    if s.req.rid in rec.cancelled:
+                        continue
+                    if not rec.folded:
+                        s.num_cached += 1
+                        if not emit:          # still streaming known tokens
+                            self._c["prefill_tokens"].inc()
+                            continue
+                    else:
+                        if not emit:
+                            continue          # counted at predict time
+                        s.pending -= 1
+                    if s.stopped:
+                        continue
+                    self._append_sample(s, int(vals["dec"][slot]))
+                    if s.done:
+                        self._cancel_inflight(s, newer)
+
             self._c["steps"].inc()
             self.scheduler.commit_progress()  # register newly-full blocks
+            # commit_progress hashes s.seq[:num_cached], which clamps to
+            # *known* tokens — blocks holding a pending token's KV only
+            # register once its value materializes
 
-    def _dispatch_decode(self, plan, fetch, spec_meta) -> None:
+    def _cancel_inflight(self, s: RequestState, rec: _Inflight | None
+                         ) -> None:
+        """Misprediction rollback: ``s`` just finished at reconcile, but the
+        next step was already planned and dispatched from the predicted
+        still-running state.  Discard its row in that record (the in-flight
+        sample never folds; ``_predict_fold`` skips its growth) and hand
+        back the blocks the predicted plan over-reserved — the same
+        ``PagedCache.truncate`` rollback speculative decode uses; the slot's
+        in-flight garbage KV write lands in a freed block that is re-written
+        before any gated read (one stream orders them)."""
+        rid = s.req.rid
+        if rec is None or rid not in rec.src or rid in rec.cancelled:
+            return
+        rec.cancelled.add(rid)
+        if s.slot >= 0:
+            self.cache_host.truncate(s.slot, s.num_cached)
+
+    def _dispatch_decode(self, plan, spec_k, fetch, spec_meta, prev=None
+                         ) -> None:
         """Build the fixed-shape decode batch and launch either the plain
-        decode step or the speculative draft/verify cycle."""
+        decode step or the speculative draft/verify cycle.  Under async
+        overlap, rows with a pending token take it from the previous step's
+        device tensors with ``torch.where`` on the device (the token never
+        passes through the host); the feed masks ride in the call's one
+        upload."""
         B = self.cfg.max_seqs
         tokens = np.zeros((B,), np.int32)
         positions = np.zeros((B,), np.int32)
         temps = np.zeros((B,), np.float32)
         active = np.zeros((B,), bool)
+        feed = {"dec": np.zeros((B,), bool), "pre": np.zeros((B,), bool)}
         for s in plan.decode:
-            tokens[s.slot] = s.next_token
+            if s.pending:
+                src, pslot = prev.src[s.req.rid]
+                assert pslot == s.slot     # no preemption while pending
+                feed[src][s.slot] = True
+            else:
+                tokens[s.slot] = s.next_token
             positions[s.slot] = s.num_cached
             temps[s.slot] = s.req.temperature
             active[s.slot] = True
         # inactive slots write into the null block, not their tables
         tables = np.where(active[:, None], self.cache_host.tables, 0)
-        if plan.spec:
+        if spec_k and plan.spec:
             fetch["out"], fetch["acc"] = self._spec_decode(
                 plan, tokens, positions, temps, active, tables, spec_meta)
             return
         # only the recurrent state reads the mask: the dense step is sent
         # none, so it uploads and casts nothing more
-        recur = (active,) if self._recurrent else ()
-        tok, pos, tab, *act = self._upload(tokens, positions, tables, *recur)
+        extra = [active] if self._recurrent else []
+        feeds = [n for n in ("dec", "pre") if feed[n].any()]
+        extra += [feed[n] for n in feeds]
+        sampled = bool((temps > 0).any())
+        if sampled:
+            extra.append(temps.view(np.int32))
+        tok, pos, tab, *rest = self._upload(tokens, positions, tables,
+                                            *extra)
+        act = rest.pop(0).bool() if self._recurrent else None
+        for n in feeds:
+            tok = torch.where(rest.pop(0).bool(), prev.fetch[n], tok)
+        t_dev = rest.pop(0).view(torch.float32) if sampled else None
         logits, self.cache = self.model.paged_decode_step(
-            self.params, self.cache, tok, pos, tab,
-            act[0].bool() if act else None)
+            self.params, self.cache, tok, pos, tab, act)
         self._c["decode_calls"].inc()
-        fetch["dec"] = self._sample(logits, temps)
+        fetch["dec"] = self._sample(logits, temps, t_dev)
 
     def _dispatch_prefill(self, plan, spec_k, fetch, sampled_prefills
                           ) -> None:
@@ -646,11 +1164,14 @@ class Engine:
             pref_active[s.slot] = True
         ptables = np.where(pref_active[:, None], self.cache_host.tables, 0)
         slots = np.arange(B, dtype=np.int32)
-        args = self._upload(toks, pos, slots, ptables, valid)
+        sampled = bool((ptemps > 0).any())
+        args = self._upload(toks, pos, slots, ptables, valid,
+                            *([ptemps.view(np.int32)] if sampled else []))
+        t_dev = args.pop().view(torch.float32) if sampled else None
         logits, self.cache = self.model.paged_prefill_step(
             self.params, self.cache, *args)
         self._c["prefill_calls"].inc()
-        nxt = self._sample(logits, ptemps)
+        nxt = self._sample(logits, ptemps, t_dev)
         if spec_k:                        # keep the draft pool in step; its
             # logits are discarded (the reference's jit drops them unused)
             _, self.draft_cache = self.draft_model.paged_prefill_step(
@@ -688,10 +1209,11 @@ class Engine:
             forced[s.slot, :kl] = seq[s.draft_cached:s.draft_cached + kl]
             known_len[s.slot] = kl
             start_pos[s.slot] = s.draft_cached
-            # dynamic K (spec_ema > 0): the scheduler planned (and block-
-            # reserved) k_s <= K candidates for this slot; the device
-            # shapes stay (B, K) — surplus draft positions land in the
-            # null block and the verify mask discards them
+            # dynamic K (spec_ema > 0) or the degradation ladder: the
+            # scheduler planned (and block-reserved) k_s <= K candidates
+            # for this slot; the device shapes stay (B, K) — surplus draft
+            # positions land in the null block and the verify mask
+            # discards them
             k_s = s.spec_k_plan or K
             m = max(0, k_s - gap)             # candidates this cycle
             ncand[s.slot] = m
@@ -758,6 +1280,295 @@ class Engine:
                 # surplus blocks; the commit cursor rewinds with them
                 self.cache_host.truncate(s.slot, s.num_cached)
 
+    # ----- fault tolerance -----
+    def _fault_tick(self) -> None:
+        """Per-step fault hook: release expired injected holds, then let the
+        injector fire the step-scoped kinds (crash / slow_step /
+        alloc_hold).  One list check + one attribute check when idle."""
+        self._tick += 1
+        if self._fault_held:
+            a = self.cache_host.allocator
+            keep = []
+            for rel, blocks in self._fault_held:
+                if self._tick >= rel:
+                    a.unhold(blocks)
+                else:
+                    keep.append((rel, blocks))
+            self._fault_held = keep
+        if self.faults is None:
+            return
+        f = self.faults.fire("crash", self._steps)
+        if f is not None:
+            self._c["faults_injected"].inc()
+            raise CrashError(f"injected crash at step {self._steps}")
+        f = self.faults.fire("slow_step", self._steps)
+        if f is not None:
+            self._c["faults_injected"].inc()
+            time.sleep(f.delay_s)
+        f = self.faults.fire("alloc_hold", self._steps)
+        if f is not None:
+            self._c["faults_injected"].inc()
+            a = self.cache_host.allocator
+            n = f.blocks or max(1, a.num_available // 2)
+            held = a.hold(n)
+            if held:
+                self._fault_held.append(
+                    (self._tick + max(1, f.hold_steps), held))
+
+    def _idle_release_holds(self) -> None:
+        """Injected holds simulate pool pressure DURING serving; when a step
+        leaves the engine idle (no work, nothing in flight) the pressure is
+        moot and outstanding holds are handed back — a hold outliving the
+        last request would read as a real block leak."""
+        if self._fault_held and not self.scheduler.has_work \
+                and self._pending is None:
+            a = self.cache_host.allocator
+            for _, blocks in self._fault_held:
+                a.unhold(blocks)
+            self._fault_held = []
+
+    def _abort_step(self, rec: _Inflight, newer: _Inflight | None) -> None:
+        """A step's fetch failed past every retry.  Recovery splits on
+        pipeline position:
+
+        - *lockstep* (not predict-folded): no host cursor moved and the
+          device KV writes are idempotent, so the step simply never
+          happened.  Sampled-prefill rows rewind their cursors to re-feed
+          the last prompt token; speculative reservations are handed back.
+          The redone step is byte-identical at temperature 0 (greedy
+          sampling draws nothing; at temperature > 0 the redo legitimately
+          re-draws).
+        - *folded* (async overlap): the next step already consumed this
+          step's device outputs, and the lost sample values cannot be
+          recovered — the rows that were waiting on them fail cleanly
+          (finish_reason "error", rolled out of the newer record), while
+          every non-emitting row keeps its deterministic growth."""
+        self._c["recoveries"].inc()
+        if not rec.folded:
+            for s, _, _ in rec.spec_meta:
+                if not s.done and s.slot >= 0:
+                    self.cache_host.truncate(s.slot, s.num_cached + 1)
+            for s, _ in rec.pre_rows:
+                if s.slot >= 0:
+                    s.num_cached = min(s.num_cached, s.seq_len - 1)
+                    s.draft_cached = min(s.draft_cached,
+                                         max(s.num_cached, 0))
+            return
+        for s, _ in rec.pre_rows:
+            if s.req.rid in rec.cancelled:
+                continue
+            s.pending -= 1
+            if not s.stopped:
+                self._finish_early(s, "error")
+            self._cancel_inflight(s, newer)
+        for s, _, emit in rec.decode_rows:
+            if s.req.rid in rec.cancelled or not emit:
+                continue
+            s.pending -= 1
+            if not s.stopped:
+                self._finish_early(s, "error")
+            self._cancel_inflight(s, newer)
+        self._c["steps"].inc()
+
+    def _audit_maybe(self) -> None:
+        """Runtime invariant auditing (ServeConfig.audit_level): run the
+        property-test conservation oracle as a production defense.  On a
+        violation, quarantine into the recover path instead of silently
+        serving from corrupt state.  "off" costs one string compare."""
+        lvl = self.cfg.audit_level
+        if lvl == "off":
+            return
+        if self._steps % self.cfg.audit_interval:
+            return
+        try:
+            with self._phase("audit"):
+                if lvl == "alloc":
+                    self.cache_host.allocator.check()
+                else:
+                    self.cache_host.check()
+        except AssertionError as e:
+            self._c["audit_violations"].inc()
+            try:
+                self._recover()
+            except AssertionError:
+                raise AuditViolation(
+                    f"invariant audit failed and recovery did not "
+                    f"converge: {e}") from e
+
+    def _recover(self) -> None:
+        """Quarantine-and-recover: rebuild every derived host structure from
+        the authoritative per-slot ownership, fail the requests whose
+        bookkeeping cannot be trusted, and resume.
+
+        The in-flight async step (if any) is discarded — its fetch metadata
+        may describe the corrupt state — and predicted growth rolls back to
+        known tokens; device KV for those positions is rewritten
+        idempotently when the requests re-plan (after the discarded step's
+        writes: one stream orders them)."""
+        self._c["recoveries"].inc()
+        self._pending = None
+        cache, sched = self.cache_host, self.scheduler
+        for s in list(sched.running) + list(sched.waiting):
+            s.pending = 0
+        cache.rebuild()
+        seen: dict[int, RequestState] = {}
+        for s in sorted(list(sched.running), key=lambda r: r.req.rid):
+            dup = not (0 <= s.slot < cache.max_seqs) or s.slot in seen
+            if dup:
+                # an invalid or contested slot: the request's blocks are
+                # not distinguishable from its neighbor's — fail without
+                # releasing (the slot's owner keeps it)
+                self._fail_running(s, "error", release=False)
+                continue
+            seen[s.slot] = s
+            cap = len(cache._owned[s.slot]) * cache.block_size
+            tgt = max(0, min(s.num_cached, len(s.seq) - 1))
+            if tgt > cap:
+                # ownership cannot back the KV the cursor claims — the
+                # history is gone, fail cleanly and free what's left
+                self._fail_running(s, "error", release=True)
+                continue
+            s.num_cached = tgt
+            s.draft_cached = min(s.draft_cached, tgt)
+        # the free-slot stack is derived state too: recompute from the
+        # surviving running set (descending, preserving LIFO admission)
+        used = {s.slot for s in sched.running}
+        sched._free_slots = [sl for sl in range(cache.max_seqs - 1, -1, -1)
+                             if sl not in used]
+        cache.check()                   # recovery must converge
+
+    def _fail_running(self, s: RequestState, reason: str,
+                      release: bool = True) -> None:
+        """Fail one running request outside a scheduling round: finish it,
+        move it straight to the finished list, optionally release its
+        slot's blocks (recovery recomputes the free-slot stack itself)."""
+        self._finish_early(s, reason)
+        self.scheduler.running.remove(s)
+        self.scheduler.finished.append(s)
+        if release and 0 <= s.slot < self.cache_host.max_seqs:
+            self.cache_host.release(s.slot)
+        s.slot = -1
+
+    def _unjam(self) -> bool:
+        """``plan_step`` hit OutOfBlocks growing a lone running request.
+        Release emergency resources instead of crashing the engine: injected
+        holds go back first; failing that, the youngest running request
+        fails cleanly ("error").  Returns False when nothing is left to
+        give — the caller re-raises."""
+        self._c["recoveries"].inc()
+        if self._fault_held:
+            a = self.cache_host.allocator
+            for _, blocks in self._fault_held:
+                a.unhold(blocks)
+            self._fault_held = []
+            return True
+        live = [s for s in self.scheduler.running if not s.done]
+        if not live:
+            return False
+        victim = max(live, key=lambda s: s.req.rid)
+        self._finish_early(victim, "error")
+        return True
+
+    def _degrade_tick(self) -> None:
+        """Graceful degradation under sustained pool pressure.  Pressure =
+        available blocks below ``pressure_threshold`` of the pool, or a full
+        waiting queue; ``pressure_window`` consecutive pressured (calm)
+        steps engage (disengage) the ladder: shed waiting requests older
+        than ``shed_queue_age_s`` (finish_reason "shed" — a retriable
+        rejection), clamp the planned speculative K to 1, and pause
+        prefix-cache admission."""
+        if not self.cfg.degrade:
+            return
+        a = self.cache_host.allocator
+        usable = max(a.num_blocks - 1, 1)
+        pressured = (a.num_available < self.cfg.pressure_threshold * usable
+                     or (self.cfg.max_waiting > 0 and
+                         len(self.scheduler.waiting) >=
+                         self.cfg.max_waiting))
+        if pressured:
+            self._pressure_run += 1
+            self._calm_run = 0
+        else:
+            self._calm_run += 1
+            self._pressure_run = 0
+        if not self._degraded and \
+                self._pressure_run >= self.cfg.pressure_window:
+            self._degraded = True
+        elif self._degraded and self._calm_run >= self.cfg.pressure_window:
+            self._degraded = False
+        self.cache_host.admission_paused = self._degraded
+        if self._degraded and self.cfg.shed_queue_age_s > 0 \
+                and self.scheduler.waiting:
+            now = time.time()
+            for s in [w for w in self.scheduler.waiting if not w.done]:
+                born = self._submit_wall.get(s.req.rid, now)
+                if now - born > self.cfg.shed_queue_age_s:
+                    self._c["requests_shed"].inc()
+                    self._finish_early(s, "shed")
+                    self.scheduler.drop_waiting(s)
+
+    def drain(self, timeout_s: float | None = None
+              ) -> dict[int, FinishedRequest]:
+        """Graceful shutdown: stop admitting waiting requests, run every
+        already-admitted request to completion (reconciling any in-flight
+        async step), and return the drained records.  Waiting requests stay
+        queued — a snapshot taken after ``drain()`` preserves them for a
+        restored engine to serve.  ``add_request`` raises EngineOverloaded
+        while draining; ``reset()`` clears the state.
+
+        ``timeout_s`` (default ``cfg.drain_timeout_s``; 0 = unbounded)
+        deadlines the drain: requests still running when it expires are
+        force-preempted into the waiting queue as waiting-with-prefix
+        (prompt + generated tokens ride along for recompute on
+        re-admission), so one hung or long-tailed request cannot stall a
+        rolling restart forever.  Nothing is failed — the preempted
+        requests survive into the snapshot."""
+        if timeout_s is None:
+            timeout_s = self.cfg.drain_timeout_s
+        deadline = time.time() + timeout_s if timeout_s > 0 else None
+        self._draining = True
+        step = self.step_async if self.cfg.async_step else self.step
+        while self.scheduler.running or self.pending_step:
+            if deadline is not None and time.time() >= deadline:
+                self._force_preempt_running()
+                break
+            step()
+        return self.pop_finished()
+
+    def _force_preempt_running(self) -> None:
+        """Drain-deadline enforcement: reconcile any in-flight step, then
+        preempt every unfinished running request back to the waiting queue —
+        exactly the recompute preemption pool pressure applies, so the
+        requests stay byte-identically resumable.  Oldest requests end up
+        at the queue's head (FCFS is preserved)."""
+        if self._pending is not None:
+            rec, self._pending = self._pending, None
+            self._reconcile(rec)
+        self.scheduler.retire_finished()
+        now = time.time()
+        for s in sorted(self.scheduler.running,
+                        key=lambda r: r.req.rid, reverse=True):
+            self.scheduler._preempt(s)
+            self._preempt_wall[s.req.rid] = now
+            self.obs.event("preempt", s.req.rid)
+        self._idle_release_holds()
+
+    def snapshot(self) -> dict:
+        """Serialize full host state + device pools
+        (``repro_torch.serve.snapshot``).  Any in-flight async step is
+        reconciled first so the captured state has no pending tokens."""
+        from repro_torch.serve import snapshot as _snap
+        if self._pending is not None:
+            rec, self._pending = self._pending, None
+            self._reconcile(rec)
+        return _snap.capture(self)
+
+    def restore(self, snap: dict) -> None:
+        """Restore a snapshot produced by a config-identical engine; the
+        restored engine resumes byte-identically."""
+        from repro_torch.serve import snapshot as _snap
+        _snap.restore_into(self, snap)
+
     # ----- results -----
     def _record(self, s: RequestState) -> FinishedRequest:
         """One finished request's result + latency record, built from the
@@ -784,35 +1595,59 @@ class Engine:
             ("stop" if s.stopped else "length"))
 
     def _forget_rid(self, rid: int) -> None:
-        """Retire one drained request's per-rid host bookkeeping."""
+        """Retire one drained request's per-rid host bookkeeping — a
+        long-lived server would otherwise grow these dicts with every
+        request it ever served."""
         for d in (self._admit_step, self._finish_step, self._submit_wall,
                   self._first_tok_wall, self._last_tok_wall,
                   self._queue_wait, self._preempt_wall,
-                  self._preempt_stall):
+                  self._preempt_stall, self._deadline, self._on_token):
             d.pop(rid, None)
         self._chunked.discard(rid)
 
     def finished(self) -> dict[int, FinishedRequest]:
         """Records for every request finished so far (manual ``step()``
         driving included).  Non-destructive: latency fields are only valid
-        for requests not yet drained by ``run()``."""
+        for requests not yet drained by ``run()`` / ``pop_finished()``."""
         return {s.req.rid: self._record(s) for s in self.scheduler.finished}
 
-    def run(self, requests: Iterable[dict[str, Any]] | None = None
+    def pop_finished(self) -> dict[int, FinishedRequest]:
+        """Drain finished requests destructively: build each record, then
+        retire its per-rid bookkeeping and the scheduler's finished list.
+        Long-lived manual-stepping servers call this instead of
+        ``finished()`` so host memory stays bounded by requests in flight,
+        not requests ever served."""
+        recs = {s.req.rid: self._record(s)
+                for s in self.scheduler.finished}
+        for rid in recs:
+            self._forget_rid(rid)
+        self.scheduler.finished.clear()
+        self._drained = 0
+        return recs
+
+    def run(self, requests: Iterable[dict[str, Any]] | None = None,
+            stop_when=None
             ) -> tuple[dict[int, FinishedRequest], dict[str, float]]:
-        """Drive until the queue drains.  Returns ({rid: result}, stats);
-        drained requests' per-rid wall clocks are retired with their
-        records.  Every step ends in the host fetch, so the wall time
-        covers the device work."""
+        """Drive until the queue drains (the ``step_async`` pipeline when
+        ``cfg.async_step``).  Returns ({rid: result}, stats); drained
+        requests' per-rid wall clocks are retired with their records.
+        ``stop_when()`` (checked between steps) ends the drive early — the
+        signal-driven drain of ``launch/serve.py`` uses it.  Every step's
+        fetch waits for its device work, so the wall time covers it."""
         if requests:
             for r in requests:
                 self.add_request(**r)
-        # registry snapshot so repeated run() calls report THIS drain only
+        # registry snapshot so repeated run() calls report THIS drain only;
+        # the drained boundary (not len(finished) at entry) so requests
+        # cancelled between runs still report here
         c0 = self.obs.registry.counter_values("serve/")
         fin0 = self._drained
+        step = self.step_async if self.cfg.async_step else self.step
         t0 = time.time()
-        while self.scheduler.has_work:
-            self.step()
+        while self.scheduler.has_work or self.pending_step:
+            if stop_when is not None and stop_when():
+                break
+            step()
         dt = time.time() - t0
 
         out = {s.req.rid: self._record(s)
@@ -842,5 +1677,10 @@ class Engine:
             "decode_calls": d["decode_calls"],
             "prefill_calls": d["prefill_calls"],
             "mean_ttft_s": float(np.mean(ttfts)) if ttfts else 0.0,
+            "faults_injected": d["faults_injected"],
+            "recoveries": d["recoveries"],
+            "requests_shed": d["requests_shed"],
+            "audit_violations": d["audit_violations"],
+            "callback_errors": d["callback_errors"],
         }
         return out, stats

@@ -1,23 +1,31 @@
 """The port's copies of the host-side serving core (``kv_cache.py``,
-``scheduler.py``) against the originals: both are driven by one seeded
-sequence of operations and must agree **exactly** — allocator state, block
-tables, prefix index, raised errors and ``StepPlan``s.
+``scheduler.py``, ``faults.py``) against the originals: the first two are
+driven by one seeded sequence of operations and must agree **exactly** —
+allocator state, block tables, prefix index, raised errors and
+``StepPlan``s.
 """
 import inspect
 
 import numpy as np
 import pytest
 
-from repro.serve import kv_cache as j_kv, scheduler as j_sched
-from repro_torch.serve import kv_cache as t_kv, scheduler as t_sched
+from repro.serve import (faults as j_faults, kv_cache as j_kv,
+                         scheduler as j_sched)
+from repro_torch.serve import (faults as t_faults, kv_cache as t_kv,
+                               scheduler as t_sched)
+
+_COPIES = {"kv_cache": (t_kv, j_kv), "scheduler": (t_sched, j_sched),
+           "faults": (t_faults, j_faults)}
 
 
-def test_copies_are_verbatim():
-    """kv_cache: whole file; scheduler: everything but its one import."""
-    assert inspect.getsource(t_kv) == inspect.getsource(j_kv)
-    js = inspect.getsource(j_sched).replace("from repro.serve.kv_cache",
-                                            "from repro_torch.serve.kv_cache")
-    assert inspect.getsource(t_sched) == js
+@pytest.mark.parametrize("name", sorted(_COPIES))
+def test_copies_are_verbatim(name):
+    """kv_cache and faults: whole file; scheduler: everything but its one
+    import."""
+    port, ref = _COPIES[name]
+    want = inspect.getsource(ref).replace("from repro.serve.kv_cache",
+                                          "from repro_torch.serve.kv_cache")
+    assert inspect.getsource(port) == want
 
 
 def cache_state(c):
