@@ -50,7 +50,19 @@ nothing of JAX or of the JAX package.  Phases:
     fault schedule with full audits, lockstep and async; (e) a snapshot
     saved to a file at step K - 1, the injected crash at K, and a fresh
     engine restored from the file run to the end against an uninterrupted
-    run, lockstep and async;
+    run, lockstep and async; then (4c) replicated serving on the same model
+    (a generator of its own): (a) two mixed replicas behind
+    ``repro_torch.serve.Cluster``, replica 0 killed at a fixed tick
+    mid-decode and its running requests handed to the survivor with their
+    KV blocks; (b) one prefill and two decode replicas, every request's
+    blocks migrated once its prompt is done, zero recompute; (c) a rolling
+    restart mid-run; (d) int8 pools handed off with their scales, the
+    adopter's bytes equal to the exporter's, and a bf16 -> int8 hand-off
+    falling back to recompute — every token held to phase 4's
+    single-engine run (exactly where a request's schedule matches, a
+    migration counting as a change, else by teacher forcing), the counts
+    to their formulas, K1's launches to layers x device calls over every
+    replica;
  5. times of the device code around the kernel (KV scatter, sampling, COW);
  6. the OBSPA sweep kernel K4 against its plain PyTorch version and the
     float64 oracle (the reference's test shapes, identity Hessian, a batched
@@ -86,7 +98,7 @@ nothing of JAX or of the JAX package.  Phases:
     version and two bounds (the f32 CUDA cores', and the tensor cores' for
     the split-TF32 passes);
  9. the main path of the ssm family at full width: ``mamba2-1.3b`` (cut to
-    24 of its 48 layers; d 2048, 64 SSM heads x 64, state 128, bf16, random
+    8 of its 48 layers, ``MAMBA2_LAYERS``; d 2048, 64 SSM heads x 64, state 128, bf16, random
     weights from a seed) — ``Model.forward`` on K3 against the plain scan,
     16 requests served by ``Engine`` (a third behind a shared prefix that
     must not be aliased), every served token checked by teacher forcing
@@ -117,7 +129,7 @@ nothing of JAX or of the JAX package.  Phases:
     and peak memory of each; then (11b) the trained dense model served as
     the target of its own drafts, self-speculative at K 4 with greedy
     verify: 16 requests whose prompts are 192-320-token prefixes of rows
-    no model trained on, 64 new tokens each — (a) dense only, (b) the L1
+    no model trained on, 32 new tokens each — (a) dense only, (b) the L1
     + fine-tuned draft on a bf16 draft pool, run twice, (c) on an int8
     draft pool, (d) the OBSPA draft, (e) (b) with telemetry on — each held
     lossless by teacher forcing against ``Model.forward`` (a limit set
@@ -127,9 +139,9 @@ nothing of JAX or of the JAX package.  Phases:
     tok/s, TTFT, draft pool bytes, peak memory and (e)'s phase timers;
     and a checkpoint-and-restart drill (``run_with_restarts``) at the
     reduced config;
-12. the hybrid family at full width: ``hymba-1.5b`` (cut to 16 of its 32
+12. the hybrid family at full width: ``hymba-1.5b`` (cut to 8 of its 32
     layers, ``HYMBA_LAYERS``; d 1600, 25 query heads over 5 KV heads of 64,
-    window 1024 except on the global layers 0 and 15, 50 SSM heads x 64,
+    window 1024 except on the global layer 0, 50 SSM heads x 64,
     state 16, bf16, random weights from a seed), attention and SSD heads
     in parallel in every layer, so K1, K2
     and K3 run in one model — 16 requests of 256-1600 tokens served (four
@@ -142,7 +154,8 @@ nothing of JAX or of the JAX package.  Phases:
     the same way, with every reconstructed consumer's layer-output error
     against plain slicing recorded, and the four kernels' launches held to
     their formulas; its prompts come from a generator of its own;
-13. the moe family at full width: ``qwen2-moe-a2.7b`` (24 layers, d 2048,
+13. the moe family at full width: ``qwen2-moe-a2.7b`` (cut to 12 of its 24
+    layers, ``MOE_LAYERS``; d 2048,
     16 heads of 128 over 16 KV heads, 60 routed experts top-4 of width
     1408 and 4 shared experts of 5632, bf16, random weights from a seed) —
     each layer's attention on K2 against its plain version and its MoE
@@ -154,9 +167,9 @@ nothing of JAX or of the JAX package.  Phases:
     engine, teacher-forced against ``Model.forward`` on K2: the published
     routing at 2 layers read only (a router near-tie flips an expert
     between the two roundings), the all-experts twin (top-60, capacity
-    factor 1: no choice, no drop) held at 2 layers and at 24; the drop
+    factor 1: no choice, no drop) held at 2 layers and at all 12; the drop
     counter's time in a decode step; then L1-pruned at ratio
-    0.5 at all 24 layers and OBSPA-pruned at ratio 0.5 at its first 8
+    0.5 at all its layers and OBSPA-pruned at ratio 0.5 at its first 8
     (every consumer's Hessian is held at once: ~60 GB at 24 layers), the
     experts' ``w_down`` swept by K4 all 60 at once, every reconstructed
     consumer's layer-output error held below plain slicing; each pruned
@@ -281,8 +294,8 @@ from repro_torch.models.layers import rms_norm, swiglu  # noqa: E402
 from repro_torch.models.ssm import ssd_reference, ssm_block  # noqa: E402
 from repro_torch.obs import Telemetry  # noqa: E402
 from repro_torch.serve import (  # noqa: E402
-    CrashError, Engine, EngineOverloaded, Fault, FaultInjector, ServeConfig,
-    load_snapshot, save_snapshot)
+    Cluster, ClusterConfig, CrashError, Engine, EngineOverloaded, Fault,
+    FaultInjector, ServeConfig, load_snapshot, save_snapshot)
 from repro_torch.train.loop import (  # noqa: E402
     Trainer, TrainerConfig, run_with_restarts)
 from repro_torch.train.optim import OptConfig  # noqa: E402
@@ -1121,6 +1134,7 @@ def phase_main_path(rng, quick: bool, profile: bool = False,
     torch.cuda.reset_peak_memory_stats()
     eng = Engine(model, params, scfg)
     sampling_steps = count_sampling_steps(eng)
+    ref_sig = schedule_signature(eng)        # 4c's reference schedules
     reset_launches()                         # counts = the main path's only
     out, stats = eng.run(reqs)
     torch.cuda.synchronize()
@@ -1219,6 +1233,8 @@ def phase_main_path(rng, quick: bool, profile: bool = False,
     torch.cuda.empty_cache()
     res["front_door"] = phase_front_door(model, params, scfg, reqs, out,
                                          seed)
+    res["cluster"] = phase_cluster(model, params, scfg, reqs, out, ref_sig,
+                                   seed)
     del params
     torch.cuda.empty_cache()
     return res
@@ -1245,21 +1261,31 @@ FD_PHASES = ("step", "plan", "overlap", "prefill_dispatch", "decode_dispatch",
 def schedule_signature(engine) -> dict:
     """Per request, what decides its arithmetic besides its tokens: the
     cursor at each admission (the prefix it hit) and its prefill chunks,
-    recorded by wrapping the scheduler's ``plan_step``; preemptions come
-    from the records.  Returns {rid: [admission cursors, chunks]}."""
+    recorded by wrapping the scheduler's ``plan_step``, and (4c) its
+    migrations between replicas; preemptions come from the records.
+    Returns {rid: [admission cursors, chunks, migrations]}."""
     sig: dict = {}
+    record_schedule(engine, sig)
+    return sig
+
+
+def record_schedule(engine, sig: dict, key=lambda rid: rid) -> None:
+    """``schedule_signature``'s recorder on one engine, into ``sig`` under
+    ``key(rid)``: per request [admission cursors, prefill chunks,
+    migrations]; the migrations ([tick, "blocks" or "recompute"], 4c) are
+    recorded by the cluster's recorder."""
     plan_step = engine.scheduler.plan_step
 
     def recorded(*args, **kw):
         plan = plan_step(*args, **kw)
         for s in plan.admitted:
-            sig.setdefault(s.req.rid, [[], 0])[0].append(s.num_cached)
+            sig.setdefault(key(s.req.rid), [[], 0, []])[0].append(
+                s.num_cached)
         for s, _ in plan.prefill:
-            sig.setdefault(s.req.rid, [[], 0])[1] += 1
+            sig.setdefault(key(s.req.rid), [[], 0, []])[1] += 1
         return plan
 
     engine.scheduler.plan_step = recorded
-    return sig
 
 
 def forbid_syncs(engine) -> None:
@@ -1322,13 +1348,14 @@ def phase_table(tel) -> dict:
 
 
 def check_tokens(label, model, params, out, ref, sig, ref_sig, tol,
-                 prefix_ok=()) -> dict:
-    """The rule 4b holds a run's tokens to a reference run by: a request
-    whose admission cursors, chunk count and preemptions equal the
-    reference's gives the same tokens exactly (a prefix of them for the
-    rids in ``prefix_ok``, cut short by a fault); any other (a prefix block
-    registers one step later under overlap) is held to ``tol`` by teacher
-    forcing."""
+                 prefix_ok=(), phase="4b") -> dict:
+    """The rule 4b and 4c hold a run's tokens to a reference run by: a
+    request whose admission cursors, chunk count, migrations and
+    preemptions equal the reference's gives the same tokens exactly (a
+    prefix of them for the rids in ``prefix_ok``, cut short by a fault or
+    asked for fewer); any other (a prefix block registers one step later
+    under overlap, another replica's prefix cache, a migration) is held to
+    ``tol`` by teacher forcing."""
     exact, forced, worst = [], [], 0.0
     for r in sorted(out):
         same = (sig.get(r), out[r].preemptions) == \
@@ -1337,22 +1364,28 @@ def check_tokens(label, model, params, out, ref, sig, ref_sig, tol,
             want = ref[r].tokens[:len(out[r].tokens)] if r in prefix_ok \
                 else ref[r].tokens
             if out[r].tokens != want:
-                raise AssertionError(f"4b {label}: rid {r} has the reference's "
-                                     f"schedule but other tokens")
+                raise AssertionError(f"{phase} {label}: rid {r} has the "
+                                     f"reference's schedule but other "
+                                     f"tokens")
             exact.append(r)
         else:
             gap = teacher_forced_gap(model, params, out[r])[0]
             worst = max(worst, gap)
             if gap > tol:
-                raise AssertionError(f"4b {label}: rid {r} teacher-forced "
-                                     f"shortfall {gap} > {tol}")
+                raise AssertionError(f"{phase} {label}: rid {r} "
+                                     f"teacher-forced shortfall {gap} > "
+                                     f"{tol}")
             forced.append(r)
-    print(f"  4b {label}: {len(exact)} requests with the reference's "
+    # of the teacher-forced requests, those whose tokens are the reference's
+    # all the same (a prefix of them where fewer were asked for)
+    same = sum(out[r].tokens == ref[r].tokens[:len(out[r].tokens)]
+               for r in forced)
+    print(f"  {phase} {label}: {len(exact)} requests with the reference's "
           f"schedule equal token for token, {len(forced)} with another "
-          f"held by teacher forcing (max shortfall {worst:.4f}, tol {tol})",
-          flush=True)
+          f"held by teacher forcing (max shortfall {worst:.4f}, tol {tol}; "
+          f"{same} of them equal to the reference all the same)", flush=True)
     return {"exact": len(exact), "teacher_forced": len(forced),
-            "max_shortfall": worst}
+            "teacher_forced_equal": same, "max_shortfall": worst}
 
 
 def random_requests(rng, vocab, n, gen, lo, hi, **kw) -> list[dict]:
@@ -1659,6 +1692,423 @@ def phase_front_door(model, params, scfg, reqs, lock_out, seed: int) -> dict:
     res["crash_restore"] = fd_crash_restore(model, params, rng)
     res["seconds"] = time.time() - t_start
     print(f"  4b: {res['seconds']:.1f} s ({card})", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 4c: replicated serving at full width
+# ---------------------------------------------------------------------------
+
+# (a) and (b) serve the first ``requests`` of phase 4's mix (16 a replica in
+# (a), so the survivor has a free slot for every request of the victim),
+# replica 0 killed at cluster tick ``kill_tick``; (c) the first
+# ``restart_first`` of it and ``restart_late`` more submitted at tick
+# ``restart_tick``, cut to ``restart_gen`` tokens, every replica restarted
+# at that tick; (d) ``int8_requests`` of it cut to ``int8_gen`` tokens,
+# handed off after ``int8_step`` steps (on int8 pools, then bf16 -> int8)
+CLUSTER = dict(requests=32, kill_tick=20, restart_first=8, restart_late=4,
+               restart_gen=16, restart_tick=10, int8_requests=6,
+               int8_gen=16, int8_step=12)
+
+
+def record_cluster(cluster, rids) -> tuple[dict, list, object]:
+    """``schedule_signature`` over a cluster, under each request's index in
+    the list ``rids`` (its original rid, followed through every adoption):
+    every replica's plan, and every adoption (``Engine.adopt``, the
+    primitive the cluster moves a request by) as a migration [cluster
+    tick, "blocks" | "recompute"], the blocks read off the adopter's
+    ``serve/migrated_blocks`` counter.  Also returns the adoptions
+    themselves and ``wire``, which wires every replica again after a
+    restart (a restored engine has a new scheduler); wiring is
+    idempotent."""
+    sig: dict = {}
+    moves: list = []
+    home: dict = {}             # adopted rid -> original rid
+
+    def key(rid):               # ``rids`` may grow: requests sent late
+        return rids.index(home.get(rid, rid))
+
+    def wire():
+        for r in cluster.replicas:
+            eng = r.engine
+            if not getattr(eng.scheduler.plan_step, "recorded", False):
+                record_schedule(eng, sig, key)
+                eng.scheduler.plan_step.recorded = True
+            if getattr(eng.adopt, "recorded", False):
+                continue
+
+            def adopt(h, _inner=eng.adopt, _eng=eng):
+                counter = _eng.obs.registry.counter("serve/migrated_blocks")
+                before = counter.value
+                new = _inner(h)
+                n = counter.value - before
+                old = h.state.req.rid
+                home[new] = home.pop(old, old)
+                tick = int(cluster.stats()["ticks"])
+                sig.setdefault(key(new), [[], 0, []])[2].append(
+                    [tick, "blocks" if n else "recompute"])
+                moves.append({"num_cached": h.num_cached, "carried":
+                              h.pools is not None, "blocks": n,
+                              "tick": tick})
+                return new
+            adopt.recorded = True
+            eng.adopt = adopt
+
+    wire()
+    return sig, moves, wire
+
+
+def check_k1(label, L, engines) -> dict:
+    """K1's launches since the last reset against layers x device calls
+    summed over every engine (replicas dead or restarted included)."""
+    torch.cuda.synchronize()
+    lc = launch_counts()
+    dec = sum(e._c["decode_calls"].value for e in engines)
+    pre = sum(e._c["prefill_calls"].value for e in engines)
+    if lc["decode"] != L * dec or lc["prefill"] != L * pre or not dec:
+        raise AssertionError(f"4c {label}: K1 launches {lc} != {L} layers x "
+                             f"{dec} decode / {pre} prefill calls")
+    return {"decode": lc["decode"], "prefill": lc["prefill"],
+            "decode_calls": dec, "prefill_calls": pre}
+
+
+def cluster_serve(label, model, params, cluster, reqs, ref, ref_sig,
+                  before=None, prefix_ok=()) -> dict:
+    """Submit ``reqs``, optionally act (``before(cluster, rids, wire)``
+    returns requests submitted late; ``wire`` as ``record_cluster``'s), run the cluster dry and check it: nothing
+    left, every alive allocator clean, every request finished with all its
+    tokens, K1's launches to their formula, tokens by ``check_tokens``
+    against phase 4's run (keyed by phase 4's rids = indices in ``reqs``).
+    """
+    L = model.cfg.num_layers
+    engines = [r.engine for r in cluster.replicas]
+    reset_launches()
+    t0 = time.time()
+    rids = [cluster.submit(**r) for r in reqs]
+    sig, moves, wire = record_cluster(cluster, rids)
+    late = before(cluster, rids, wire) if before is not None else []
+    res, st = cluster.run(max_ticks=5000)
+    wall = time.time() - t0
+    if sum(m["blocks"] for m in moves) != st["migrated_blocks"]:
+        raise AssertionError(f"4c {label}: adoptions recorded "
+                             f"{sum(m['blocks'] for m in moves)} blocks, "
+                             f"the cluster {st['migrated_blocks']}")
+    launches = check_k1(label, L, engines)
+    if cluster.has_work:
+        raise AssertionError(f"4c {label}: the cluster stopped with work")
+    cluster.check()
+    for r in cluster.replicas:
+        a = r.engine.cache_host.allocator
+        if r.state == "alive" and (a.num_live or a.num_held):
+            raise AssertionError(f"4c {label}: {r.name} holds {a.num_live} "
+                                 f"live / {a.num_held} held blocks")
+    want = [r["max_new_tokens"] for r in reqs + late]
+    out = {i: res[r] for i, r in enumerate(rids)}
+    failed = [i for i, rec in out.items() if rec.finish_reason != "length"
+              or len(rec.tokens) != want[i]]
+    if len(res) != len(rids) or failed:
+        raise AssertionError(f"4c {label}: {len(res)} of {len(rids)} "
+                             f"results, failed or short: {failed}")
+    rule = check_tokens(label, model, params, out, ref, sig, ref_sig, 0.25,
+                        prefix_ok=prefix_ok, phase="4c")
+    new_tokens = sum(len(rec.tokens) for rec in out.values())
+    return {"stats": st, "wall_s": wall, "moves": moves, "out": out,
+            "k1_launches": launches, "token_rule": rule,
+            "new_tokens": new_tokens, "decode_tok_per_s": new_tokens / wall,
+            "engines": engines}
+
+
+def cl_failover(model, params, scfg, reqs, ref, ref_sig) -> dict:
+    """(a): two mixed replicas; replica 0 dies at a fixed tick mid-decode
+    and the survivor adopts every running request with its blocks."""
+    n, tick = CLUSTER["requests"], CLUSTER["kill_tick"]
+    engines = [Engine(model, params, scfg) for _ in range(2)]
+    fi = FaultInjector([Fault("replica_kill", step=tick, rid=0)])
+    cl = Cluster(engines, faults=fi)
+    r = cluster_serve("(a) failover", model, params, cl,
+                      [dict(q) for q in reqs[:n]], ref, ref_sig)
+    st, moves = r["stats"], r["moves"]
+    want_blocks = sum(engines[1].cache_host.blocks_for(m["num_cached"])
+                      for m in moves)
+    if fi.fired["replica_kill"] != 1 or st["failovers"] != 1 or \
+            [x.state for x in cl.replicas] != ["dead", "alive"] or \
+            not moves or not all(m["carried"] and m["blocks"] and
+                                 m["tick"] == tick for m in moves) or \
+            st["migrated_blocks"] != want_blocks:
+        raise AssertionError(f"4c (a): fired {dict(fi.fired)}, failovers "
+                             f"{st['failovers']}, {len(moves)} hand-offs "
+                             f"({sum(bool(m['blocks']) for m in moves)} with "
+                             f"blocks), migrated {st['migrated_blocks']} "
+                             f"blocks != {want_blocks}")
+    res = {"requests": n, "kill_tick": tick, "victims": len(moves),
+           "migrated_blocks": st["migrated_blocks"], "ticks": st["ticks"],
+           "steps": st["steps"], "wall_s": r["wall_s"],
+           "decode_tok_per_s": r["decode_tok_per_s"],
+           "k1_launches": r["k1_launches"], "token_rule": r["token_rule"]}
+    print(f"  4c (a) failover: replica 0 killed at tick {tick}; {len(moves)} "
+          f"running requests adopted by the survivor with their blocks, "
+          f"migrated_blocks {st['migrated_blocks']:.0f} = sum of "
+          f"blocks_for(num_cached); 0 failed of {n}; {st['ticks']:.0f} "
+          f"ticks, {st['steps']:.0f} engine steps in {r['wall_s']:.2f} s, "
+          f"{r['decode_tok_per_s']:.1f} tok/s; K1 {r['k1_launches']}",
+          flush=True)
+    return res
+
+
+def cl_disagg(model, params, scfg, reqs, ref, ref_sig) -> dict:
+    """(b): one prefill replica, two decode replicas with room for every
+    request: every request migrates once with its blocks, zero recompute."""
+    n = CLUSTER["requests"]
+    engines = [Engine(model, params, dataclasses.replace(scfg, role=role))
+               for role in ("prefill", "decode", "decode")]
+    tel = Telemetry(enabled=True)
+    handoff_s: list[float] = []
+    observe = tel.observe
+
+    def observed(name, value, buckets=()):
+        if name == "migrate/handoff_s":
+            handoff_s.append(value)
+        observe(name, value, buckets)
+
+    tel.observe = observed
+    cl = Cluster(engines, telemetry=tel)
+    r = cluster_serve("(b) disaggregated", model, params, cl,
+                      [dict(q) for q in reqs[:n]], ref, ref_sig)
+    st, moves = r["stats"], r["moves"]
+    pre, dec = engines[0]._c, [e._c for e in engines[1:]]
+    want_blocks = sum(engines[1].cache_host.blocks_for(m["num_cached"])
+                      for m in moves)
+    recompute = sum(c["prefill_tokens"].value for c in dec)
+    if st["disagg_migrations"] != n or len(moves) != n or \
+            not all(m["blocks"] for m in moves) or recompute or \
+            pre["decode_calls"].value or st["failovers"] or \
+            st["migrated_blocks"] != want_blocks or len(handoff_s) != n:
+        raise AssertionError(f"4c (b): disagg_migrations "
+                             f"{st['disagg_migrations']} of {n}, decode "
+                             f"replicas' prefill tokens {recompute}, prefill "
+                             f"replica's decode calls "
+                             f"{pre['decode_calls'].value}, migrated "
+                             f"{st['migrated_blocks']} != {want_blocks}")
+    hs = sorted(handoff_s)
+    res = {"requests": n, "disagg_migrations": st["disagg_migrations"],
+           "migrated_blocks": st["migrated_blocks"],
+           "decode_replicas_prefill_tokens": recompute,
+           "prefill_replica_decode_calls": pre["decode_calls"].value,
+           "handoff_s_median": float(np.median(hs)), "handoff_s_max": hs[-1],
+           "ticks": st["ticks"], "steps": st["steps"], "wall_s": r["wall_s"],
+           "decode_tok_per_s": r["decode_tok_per_s"],
+           "k1_launches": r["k1_launches"], "token_rule": r["token_rule"]}
+    print(f"  4c (b) disaggregated 1 prefill + 2 decode: disagg_migrations "
+          f"{st['disagg_migrations']:.0f} = requests, migrated_blocks "
+          f"{st['migrated_blocks']:.0f}, decode replicas' prefill tokens 0, "
+          f"prefill replica's decode calls 0; migrate/handoff_s (host) "
+          f"median {res['handoff_s_median'] * 1e3:.3f} ms, max "
+          f"{hs[-1] * 1e3:.3f} ms; {st['ticks']:.0f} ticks in "
+          f"{r['wall_s']:.2f} s, {r['decode_tok_per_s']:.1f} tok/s; K1 "
+          f"{r['k1_launches']}", flush=True)
+    return res
+
+
+def cl_rolling_restart(model, params, scfg, reqs, ref, ref_sig) -> dict:
+    """(c): (a)'s two mixed replicas, every replica restarted mid-run
+    (drain, backlog re-homed, snapshot round-trip) right after late
+    requests arrive; zero failed requests."""
+    C = CLUSTER
+    gen, first, late_n = C["restart_gen"], C["restart_first"], \
+        C["restart_late"]
+    picked = [dict(q, max_new_tokens=gen) for q in reqs[:first + late_n]]
+    engines = [Engine(model, params, scfg) for _ in range(2)]
+    cl = Cluster(engines)
+    restarted = {}
+
+    def restart_mid_run(cluster, rids, wire):
+        for _ in range(C["restart_tick"]):
+            cluster.step()
+        late = picked[first:]
+        rids += [cluster.submit(**q) for q in late]
+        t0 = time.time()
+        cluster.rolling_restart()
+        restarted["s"] = time.time() - t0
+        wire()
+        return late
+
+    r = cluster_serve("(c) rolling restart", model, params, cl,
+                      picked[:first], ref, ref_sig, before=restart_mid_run,
+                      prefix_ok=range(len(picked)))
+    st = r["stats"]
+    if st["failovers"] or any(x.state != "alive" for x in cl.replicas) or \
+            len(r["out"]) != first + late_n:
+        raise AssertionError(f"4c (c): failovers {st['failovers']}, states "
+                             f"{[x.state for x in cl.replicas]}")
+    res = {"requests": first + late_n, "gen": gen,
+           "restart_tick": C["restart_tick"],
+           "rolling_restart_s": restarted["s"],
+           "rehomed": len(r["moves"]), "ticks": st["ticks"],
+           "steps": st["steps"], "wall_s": r["wall_s"],
+           "k1_launches": r["k1_launches"], "token_rule": r["token_rule"]}
+    print(f"  4c (c) rolling restart at tick {C['restart_tick']} ({late_n} "
+          f"requests just arrived): both replicas drained, snapshotted and "
+          f"restored in {restarted['s']:.2f} s, {len(r['moves'])} waiting "
+          f"requests re-homed; 0 failed of {first + late_n}; K1 "
+          f"{r['k1_launches']}", flush=True)
+    return res
+
+
+def block_bytes(engine, rid, n: int) -> dict:
+    """The bytes of the first ``n`` blocks of a running request's table."""
+    s = next(x for x in engine.scheduler.running if x.req.rid == rid)
+    return engine._gather_blocks(engine.cache,
+                                 engine.cache_host._owned[s.slot][:n])
+
+
+def cl_int8(model, params, scfg, reqs, rng) -> dict:
+    """(d): int8 pools hand blocks off with their scales, the adopter's
+    bytes equal to the exported ones; then a bf16 -> int8 hand-off, whose
+    keys differ, falls back to waiting-with-recompute.  Its requests are
+    drawn from phase 4's mix by ``rng``."""
+    C = CLUSTER
+    L = model.cfg.num_layers
+    q8 = dataclasses.replace(scfg, cache_dtype="int8")
+    n, gen = C["int8_requests"], C["int8_gen"]
+    picked = [dict(reqs[i], max_new_tokens=gen)
+              for i in rng.choice(len(reqs), 2 * n, replace=False)]
+    reset_launches()
+    refe = Engine(model, params, q8)
+    ref_sig = schedule_signature(refe)
+    ref, _ = refe.run([dict(q) for q in picked[:n]])
+    check_k1("(d) int8 single engine", L, [refe])
+    del refe
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    src, dst = Engine(model, params, q8), Engine(model, params, q8)
+    dst._rid = 1 << 20
+    sig: dict = {}
+    index = {}
+    record_schedule(src, sig, lambda rid: rid)
+    record_schedule(dst, sig, lambda rid: index[rid])
+    for q in picked[:n]:
+        src.add_request(**q)
+    for _ in range(C["int8_step"]):
+        src.step()
+    live = [s.req.rid for s in src.scheduler.running if not s.done]
+    if len(live) != n:
+        raise AssertionError(f"4c (d): {len(live)} of {n} requests running "
+                             f"at step {C['int8_step']}")
+    moved_bytes, timed = 0, None
+    for rid in live:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = src.export_request(rid, remove=True)
+        new = dst.adopt(h)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        index[new] = rid
+        sig.setdefault(rid, [[], 0, []])[2].append([C["int8_step"], "blocks"])
+        nb = next(iter(h.pools.values())).shape[1]
+        if set(h.pools) != {"k", "v", "k_scale", "v_scale"}:
+            raise AssertionError(f"4c (d): hand-off carries {set(h.pools)}")
+        got = block_bytes(dst, new, nb)
+        for k, v in h.pools.items():
+            if not torch.equal(got[k].view(torch.uint8), v.view(torch.uint8)):
+                raise AssertionError(f"4c (d): rid {rid}'s {k} bytes differ "
+                                     f"after the scatter")
+        size = sum(v.numel() * v.element_size() for v in h.pools.values())
+        moved_bytes += size
+        if timed is None:
+            timed = {"blocks": nb, "bytes": size, "ms": dt * 1e3,
+                     # gather and scatter each read and write the bytes once
+                     "bound_ms": 4 * size / HBM_BYTES_PER_S * 1e3}
+    if dst._c["migrated_blocks"].value != sum(
+            src.cache_host.blocks_for(len(s.seq) - 1)
+            for s in dst.scheduler.running) or src.scheduler.has_work:
+        raise AssertionError("4c (d): int8 migrated block count")
+    out_dst, _ = dst.run()
+    launches = check_k1("(d) int8 hand-off", L, [src, dst])
+    out = {index[r]: rec for r, rec in out_dst.items()}
+    out.update(src.pop_finished())
+    if sorted(out) != list(range(n)) or any(
+            len(rec.tokens) != gen or rec.finish_reason != "length"
+            for rec in out.values()):
+        raise AssertionError("4c (d): int8 hand-off: not every request "
+                             "finished")
+    rule = check_tokens("(d) int8 hand-off vs one int8 engine", model, params,
+                        out, ref, sig, ref_sig, 0.5, phase="4c")
+    del src, dst
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    b16, q8e = Engine(model, params, scfg), Engine(model, params, q8)
+    for q in picked[n:]:
+        b16.add_request(**q)
+    for _ in range(C["int8_step"]):
+        b16.step()
+    fell_back, mapped = 0, {}
+    for rid in [s.req.rid for s in b16.scheduler.running if not s.done]:
+        h = b16.export_request(rid, remove=True)
+        if h.pools is None or h.key == q8e.handoff_key():
+            raise AssertionError("4c (d): bf16 hand-off without bytes or "
+                                 "with the int8 key")
+        new = q8e.adopt(h)
+        mapped[new] = rid
+        fell_back += any(s.req.rid == new and s.num_cached == 0
+                         for s in q8e.scheduler.waiting)
+    if fell_back != n or q8e._c["migrated_blocks"].value:
+        raise AssertionError(f"4c (d): {fell_back} of {n} bf16 -> int8 "
+                             f"hand-offs fell back to recompute")
+    out_q, _ = q8e.run()
+    launches_fb = check_k1("(d) bf16 -> int8", L, [b16, q8e])
+    gaps = [teacher_forced_gap(model, params, rec)[0]
+            for rec in out_q.values()]
+    if len(out_q) != n or max(gaps) > 0.5 or any(
+            len(rec.tokens) != gen for rec in out_q.values()):
+        raise AssertionError(f"4c (d): bf16 -> int8 fallback: {len(out_q)} "
+                             f"finished, teacher-forced shortfall "
+                             f"{max(gaps)}")
+    del b16, q8e
+    torch.cuda.empty_cache()
+    res = {"requests": n, "gen": gen, "handoff_bytes": moved_bytes,
+           "timed_handoff": timed, "token_rule": rule,
+           "fallbacks": fell_back, "fallback_shortfall": max(gaps),
+           "k1_launches": launches, "k1_launches_fallback": launches_fb}
+    print(f"  4c (d) int8 pools: {n} running requests handed off with k, v "
+          f"and their scales, the adopter's bytes equal to the exported "
+          f"bytes ({moved_bytes} B); one hand-off of {timed['blocks']} blocks "
+          f"({timed['bytes']} B) {timed['ms']:.3f} ms synchronized (bound "
+          f"{timed['bound_ms']:.4f} ms); bf16 -> int8: {fell_back} of {n} "
+          f"fell back to recompute (keys differ), teacher-forced shortfall "
+          f"{max(gaps):.4f} (tol 0.5)", flush=True)
+    return res
+
+
+def phase_cluster(model, params, scfg, reqs, ref, ref_sig, seed: int) -> dict:
+    """Phase 4c on phase 4's model and requests, held to phase 4's
+    single-engine run (``ref``, ``ref_sig``); its own generator ``[seed, 4,
+    3]`` picks (d)'s requests."""
+    t_start = time.time()
+    card = nvidia_smi_line()
+    print(f"phase 4c: replicated serving at full width ({card})", flush=True)
+    rng = np.random.default_rng([seed, 4, 3])
+    torch.cuda.reset_peak_memory_stats()
+    res = {"card": card}
+    res["failover"] = cl_failover(model, params, scfg, reqs, ref, ref_sig)
+    res["disaggregated"] = cl_disagg(model, params, scfg, reqs, ref, ref_sig)
+    res["rolling_restart"] = cl_rolling_restart(model, params, scfg, reqs,
+                                                ref, ref_sig)
+    res["int8"] = cl_int8(model, params, scfg, reqs, rng)
+    res["k1_launches"] = {k: sum(
+        part[key][k] for part, key in (
+            (res["failover"], "k1_launches"),
+            (res["disaggregated"], "k1_launches"),
+            (res["rolling_restart"], "k1_launches"),
+            (res["int8"], "k1_launches"),
+            (res["int8"], "k1_launches_fallback")))
+        for k in ("decode", "prefill")}
+    res["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    res["seconds"] = time.time() - t_start
+    print(f"  4c: {res['seconds']:.1f} s; peak memory "
+          f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; K1 launches "
+          f"{res['k1_launches']} ({card})", flush=True)
     return res
 
 
@@ -2789,15 +3239,16 @@ def check_mamba2(label, model, params, reqs, scfg) -> tuple[dict, int]:
     return res, launches
 
 
-MAMBA2_LAYERS = 24
+# 24 since phase 12 joined the script, 8 since phase 4c did
+MAMBA2_LAYERS = 8
 
 
 def phase_mamba2_path(rng, quick: bool) -> dict:
     print("phase 9: main path of the ssm family — mamba2-1.3b served, "
           "SPA-pruned (L1) and OBSPA-pruned (K4), each served again; "
           "teacher forcing through K3", flush=True)
-    # cut to MAMBA2_LAYERS of its 48 layers (full width) since phase 12
-    # joined the script, to keep it within its time (PERF.md §5)
+    # cut to MAMBA2_LAYERS of its 48 layers (full width) to keep the
+    # script within its time (PERF.md §5)
     cfg = get_config("mamba2-1.3b").replace(
         num_layers=4 if quick else MAMBA2_LAYERS)
     L = cfg.num_layers
@@ -3639,8 +4090,10 @@ def phase_any_time(quick: bool, seed: int) -> dict:
 # ---------------------------------------------------------------------------
 
 # 16 requests, prompts the first 192-320 tokens of the Markov task's rows that
-# no model trained on, 64 new tokens each, K 4, greedy
-SPEC = dict(requests=16, gen=64, lo=192, hi=320, k=4)
+# no model trained on, 32 new tokens each (64 until phase 4c joined the
+# script: the eager cycles are host-bound, so the tokens set the time), K 4,
+# greedy
+SPEC = dict(requests=16, gen=32, lo=192, hi=320, k=4)
 
 
 def spec_tolerance(model, params, recs) -> dict:
@@ -4225,9 +4678,10 @@ def print_prune(label, before: dict, after: dict, rep):
               f"{rep['all_below_slicing']}", flush=True)
 
 
-# phase 12 runs Hymba's first 16 of 32 layers since phase 14 joined the
-# script, to keep it within its time; global layers 0 and 15 stay
-HYMBA_LAYERS = 16
+# phase 12 runs Hymba's first 8 of 32 layers since phase 4c joined the
+# script (16 since phase 14 did), to keep it within its time; layer 0 is
+# global, the other seven windowed
+HYMBA_LAYERS = 8
 
 
 def phase_hybrid_path(rng, quick: bool) -> dict:
@@ -4327,6 +4781,9 @@ QWEN2_MOE_PRUNED = dict(n_heads=8, n_kv_heads=8, head_dim=128,
                         v_head_dim=64, n_experts=30, top_k=4, moe_d_ff=704,
                         shared_width=11264)
 MOE_SEQ = 1600              # the layer checks' 2 x 1600 tokens
+# the served depth: the first 12 of qwen2-moe's 24 layers since phase 4c
+# joined the script, to keep it within its time (all 24 before)
+MOE_LAYERS = 12
 # OBSPA's depth: the prune holds every consumer's Hessian at once, 2.03 GB
 # a layer for the shared w_down (K 22528) and 0.48 GB for the 60 experts'
 # (K 1408): ~60 GB at 24 layers beside 33.6 GB of weights, ~20 GB at 8
@@ -4556,9 +5013,8 @@ def phase_moe_path(seed: int, quick: bool) -> dict:
     print("phase 13: the moe family — qwen2-moe-a2.7b served, L1- and "
           "OBSPA-pruned and served again (K1, K2 and K4)", flush=True)
     rng = np.random.default_rng([seed, 13, 1])
-    cfg = get_config("qwen2-moe-a2.7b")
-    if quick:
-        cfg = cfg.replace(num_layers=4)
+    cfg = get_config("qwen2-moe-a2.7b").replace(
+        num_layers=4 if quick else MOE_LAYERS)
     L = cfg.num_layers
     model = build(cfg)
     t0 = time.time()
@@ -5089,8 +5545,9 @@ ENCODER = dict(batch=8, seq=512, steps=24, lr=3e-4, evals=(8, 8),
                calib=(4, 4), check=(2, 1000))
 # the prunes' depth: the host's trace, grouping and scoring grow with the
 # layers (L1 28.5 s, OBSPA 34.1 s at all 48 on an H100's host), so the
-# prunes run on the first 24 to keep phase 15 within its budget
-HUBERT_PRUNE_LAYERS = 24
+# prunes run on the first 12 (24 until phase 4c joined the script) to keep
+# the script within its budget
+HUBERT_PRUNE_LAYERS = 12
 # the paper's encoders at their registered size (6 layers, d 256, f32):
 # vit-mini on 196 patches (224 px / 16), distilbert-mini on 128 tokens;
 # batches of 32, 100 steps at lr 1e-3 (50 to fine-tune), accuracy on 8 x
@@ -5729,11 +6186,13 @@ def main() -> int:
     lap("phase 4")
     front = main_res["front_door"]
     phase_s["phase 4b (within phase 4)"] = front["seconds"]
+    phase_s["phase 4c (within phase 4)"] = main_res["cluster"]["seconds"]
     kernels[0]["launches"] = main_res["k1_launches"]["decode"]
     kernels[1]["launches"] = main_res["k1_launches"]["prefill"]
     for k, entry in (("decode", kernels[0]), ("prefill", kernels[1])):
         entry["launches_front_door_async"] = \
             front["async_vs_lockstep"]["async"][0]["k1_launches"][k]
+        entry["launches_cluster"] = main_res["cluster"]["k1_launches"][k]
     kernels[0]["build"] = kernels[1]["build"] = build_summary(k1_build)
     for k in kernels:
         k["max_abs_err"] = max(k["max_abs_err"], worst)

@@ -14,6 +14,9 @@
       --reduced --async-step [--audit-level full] [--degrade] \
       [--snapshot-out s.rsrv | --restore s.rsrv] --device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --reduced --replicas 2 [--prefill-replicas 1] --device cpu
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --reduced --prune-ratio 0.5 [--obspa] --device cpu
 
@@ -67,6 +70,15 @@ byte-identically via ``--restore PATH`` (which rebuilds the engine from the
 snapshot's own ServeConfig; CLI engine flags are ignored).
 ``--drain-timeout S`` bounds any drain: stragglers past the deadline are
 force-preempted back to the waiting queue instead of blocking shutdown.
+
+``--replicas N`` (N > 1) serves behind a ``Cluster`` of N engine replicas
+sharing the weights: least-loaded routing, tick heartbeats, failover by
+block hand-off, and a rolling restart of every replica on SIGHUP (drain,
+backlog re-homed, snapshot round-trip; zero failed requests); SIGTERM /
+SIGINT drain every replica and exit.  ``--prefill-replicas M`` (M > 0)
+disaggregates: M prefill-role replicas take the prompts and hand each
+finished prompt's KV blocks to one of ``--replicas`` decode-role replicas.
+The previous SIGTERM / SIGINT / SIGHUP handlers come back after the run.
 
 ``generate`` (sequential, token-by-token over a contiguous cache) is kept as
 the correctness oracle the engine is tested against.
@@ -128,6 +140,77 @@ def drain_on_signal(stop: dict):
     def handler(signum, frame):
         stop.setdefault("sig", signum)
     return handler
+
+
+def build_engine(model, params, args, draft_model, draft_params,
+                 telemetry, device, role: str = "mixed"):
+    """One engine from the CLI's engine flags (every replica of a cluster
+    is built by this, with its own role)."""
+    from repro_torch.serve import Engine, ServeConfig
+    return Engine(model, params, ServeConfig(
+        role=role,
+        max_seqs=args.max_seqs, block_size=args.block_size,
+        max_len=args.max_len or (args.prompt_len + args.gen),
+        num_blocks=args.num_blocks, seed=args.seed,
+        chunk_size=args.chunk_size, prefill_budget=args.prefill_budget,
+        prefix_caching=not args.no_prefix_caching,
+        spec_k=args.spec_k, spec_ema=args.spec_ema,
+        draft_cache_dtype=args.draft_cache_dtype,
+        cache_dtype=args.cache_dtype, async_step=args.async_step,
+        audit_level=args.audit_level,
+        audit_interval=args.audit_interval, degrade=args.degrade,
+        drain_timeout_s=args.drain_timeout), draft_model=draft_model,
+        draft_params=draft_params, telemetry=telemetry, device=device)
+
+
+def _serve_replicated(engines, args, toks, lens, stop, hup, telemetry):
+    """Replicated serving: N health-checked engine replicas behind a
+    ``Cluster`` router.  A SIGHUP (recorded in ``hup`` by the caller's
+    handler) triggers a rolling restart — drain, backlog re-homing and a
+    snapshot round-trip per replica, zero failed requests; SIGTERM /
+    SIGINT (in ``stop``) drain every replica and end the run."""
+    from repro_torch.serve import Cluster, ClusterConfig
+    cluster = Cluster(engines, ClusterConfig(
+        drain_timeout_s=args.drain_timeout or 30.0), telemetry=telemetry)
+    t0 = time.time()
+    for i in range(args.requests):
+        cluster.submit([int(t) for t in toks[i, :lens[i]]],
+                       max_new_tokens=args.gen,
+                       temperature=args.temperature)
+    if args.prefill_replicas:
+        print(f"cluster ready ({args.prefill_replicas} prefill + "
+              f"{args.replicas} decode replicas)", flush=True)
+    else:
+        print(f"cluster ready ({args.replicas} replicas)", flush=True)
+    while True:
+        out, stats = cluster.run(
+            stop_when=lambda: "sig" in stop or "hup" in hup)
+        if "hup" in hup and "sig" not in stop:
+            hup.clear()
+            print("SIGHUP: rolling restart", flush=True)
+            cluster.rolling_restart()
+            continue
+        break
+    if "sig" in stop:
+        print(f"signal {stop['sig']}: draining replicas", flush=True)
+        out.update(cluster.drain_all(args.drain_timeout))
+    dt = time.time() - t0
+    n_new = sum(len(r.tokens) for r in out.values())
+    print(f"served {len(out)} requests / {n_new} new tokens in {dt:.2f}s")
+    print(f"cluster: {stats['ticks']:.0f} ticks | "
+          f"{stats['steps']:.0f} engine steps | "
+          f"{stats['alive']:.0f}/{stats['replicas']:.0f} alive | "
+          f"failovers {stats['failovers']:.0f} | "
+          f"migrated blocks {stats['migrated_blocks']:.0f} | "
+          f"disagg migrations {stats['disagg_migrations']:.0f}")
+    if out:
+        first = out[min(out)]
+        print("sample token ids:", first.tokens[:16])
+    if args.trace_out:
+        from repro_torch.obs import write_chrome
+        write_chrome(telemetry.trace, args.trace_out)
+        print(f"chrome trace -> {args.trace_out} "
+              f"(one phase track per replica)")
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -192,6 +275,17 @@ def main(argv: list[str] | None = None) -> None:
                     help="graceful degradation under pool pressure: "
                          "shed aged waiting requests, clamp spec K, "
                          "pause prefix-cache admission")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="serve behind a fault-tolerant Cluster of N "
+                         "engine replicas: health-checked routing, "
+                         "failover by block hand-off, and SIGHUP-triggered "
+                         "rolling restarts")
+    ap.add_argument("--prefill-replicas", type=int, default=0,
+                    help="disaggregated serving: N prefill-role replicas "
+                         "in front of --replicas decode-role replicas; "
+                         "prompts prefill on the prefill tier and migrate "
+                         "their KV blocks to the decode tier once their "
+                         "last chunk is done (0 = colocated)")
     ap.add_argument("--drain-timeout", type=float, default=0.0,
                     help="drain() deadline in seconds: running requests "
                          "past it are force-preempted to the waiting "
@@ -207,8 +301,6 @@ def main(argv: list[str] | None = None) -> None:
                     help="'cpu' to run without a GPU (default: the CUDA "
                          "device; fails when there is none)")
     args = ap.parse_args(argv)
-
-    from repro_torch.serve import Engine, ServeConfig
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch)
@@ -268,30 +360,42 @@ def main(argv: list[str] | None = None) -> None:
         print(f"restored snapshot {args.restore}: "
               f"{len(engine.scheduler.waiting)} waiting / "
               f"{len(engine.scheduler.running)} running requests")
+    if args.prefill_replicas > 0:
+        # disaggregated tiers: prefill-role replicas feed the decode-role
+        # ones, each built with its role (a restored engine is no member)
+        roles = ["prefill"] * args.prefill_replicas + \
+            ["decode"] * args.replicas
+        engines = [build_engine(model, params, args, draft_model,
+                                draft_params, None, device, role)
+                   for role in roles]
     else:
-        engine = Engine(model, params, ServeConfig(
-            max_seqs=args.max_seqs, block_size=args.block_size,
-            max_len=args.max_len or (args.prompt_len + args.gen),
-            num_blocks=args.num_blocks, seed=args.seed,
-            chunk_size=args.chunk_size, prefill_budget=args.prefill_budget,
-            prefix_caching=not args.no_prefix_caching,
-            spec_k=args.spec_k, spec_ema=args.spec_ema,
-            draft_cache_dtype=args.draft_cache_dtype,
-            cache_dtype=args.cache_dtype, async_step=args.async_step,
-            audit_level=args.audit_level,
-            audit_interval=args.audit_interval, degrade=args.degrade,
-            drain_timeout_s=args.drain_timeout), draft_model=draft_model,
-            draft_params=draft_params, telemetry=telemetry, device=device)
-    if args.spec_k > 0 and not engine.spec_active:
+        if not args.restore:
+            engine = build_engine(model, params, args, draft_model,
+                                  draft_params, telemetry, device)
+        engines = [engine] + [
+            build_engine(model, params, args, draft_model, draft_params,
+                         None, device)
+            for _ in range(args.replicas - 1)]
+    if args.spec_k > 0 and not engines[0].spec_active:
         print("speculative decoding gated off for this family "
               "(recurrent state cannot be rewound)")
     # graceful shutdown: a signal flips the flag, run() notices between
     # steps, then the engine drains (finish in-flight, refuse admissions)
     # and optionally snapshots; the previous handlers come back after
     stop: dict[str, int] = {}
-    prev = {sig: signal.signal(sig, drain_on_signal(stop))
-            for sig in (signal.SIGTERM, signal.SIGINT)}
+    handlers = dict.fromkeys((signal.SIGTERM, signal.SIGINT),
+                             drain_on_signal(stop))
+    replicated = args.replicas > 1 or args.prefill_replicas > 0
+    hup: dict[str, int] = {}
+    if replicated:          # SIGHUP: a rolling restart of the cluster
+        handlers[signal.SIGHUP] = \
+            lambda signum, frame: hup.setdefault("hup", signum)
+    prev = {sig: signal.signal(sig, h) for sig, h in handlers.items()}
     try:
+        if replicated:
+            _serve_replicated(engines, args, toks, lens, stop, hup,
+                              telemetry)
+            return
         t0 = time.time()
         if not args.restore:
             for i in range(args.requests):

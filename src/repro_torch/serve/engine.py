@@ -107,11 +107,31 @@ gated off for them: recurrent state is per slot and cannot be rebuilt from
 aliased KV blocks; speculative decoding is gated off for them (no rewind
 of recurrent state), and ``can_handoff_blocks`` is False.
 
-Not in this module yet (later slices of the port): cluster hand-off
-(``export_request`` / ``adopt``), disaggregated roles and meshes.
+Hand-off for replicated serving (``repro_torch.serve.cluster``): a request
+leaves one engine as a :class:`SequenceHandoff` (``export_request`` /
+``export_backlog``) and joins another under a fresh rid (``adopt``).  A
+running request of an attention-family engine carries its committed hash
+chain and the bytes of its KV(+scale) blocks, gathered from the pools by
+``index_select`` on the block axis (a copy the hand-off owns, so releasing
+the source's blocks cannot change it); an adopter whose ``handoff_key``
+matches scatters them into freshly imported blocks with ``index_copy_`` and
+resumes decode without recompute.  The bytes stay on the device they came
+from; ``snapshot.capture_requests`` turns them into host bytes.  The
+replicas of a cluster share one process and, on the card, one device and
+one stream, which orders the gather after the exporter's last write and the
+scatter before the adopter's first read.  Any other
+case (no bytes, another key, recurrent families, no free slot, no room in
+the pool) adopts as waiting-with-recompute, byte-identical at temperature
+0; an error of the copy itself propagates.  ``discard_inflight`` drops a
+dispatched step unread (a dead replica's in-flight samples are lost).
+``ServeConfig.role`` splits prefill from decode: a ``prefill`` engine plans
+prefill chunks only and parks finished prompts for the cluster to migrate
+(``decode_ready``).  Meshes (and ``migrate_on_alias``, which only they
+read) are a later slice of the port.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Any, Iterable
@@ -140,10 +160,13 @@ _RUN_COUNTERS = ("steps", "decode_tokens", "prefill_tokens",
                  # fetches, aborted steps, rebuilds, unjams), shed
                  # requests, failed audits, raising stream callbacks
                  "faults_injected", "recoveries", "requests_shed",
-                 "audit_violations", "callback_errors")
+                 "audit_violations", "callback_errors",
+                 # cluster failover / block migration: blocks adopted with
+                 # their bytes
+                 "migrated_blocks")
 
-# pool entries a copy-on-write block copy moves: KV plus the per-(token,
-# head) scale pools sharing block addressing
+# pool entries a copy-on-write block copy moves and a hand-off carries: KV
+# plus the per-(token, head) scale pools sharing block addressing
 _POOL_KEYS = ("k", "v", "k_scale", "v_scale")
 
 
@@ -151,8 +174,7 @@ _POOL_KEYS = ("k", "v", "k_scale", "v_scale")
 class ServeConfig:
     """The reference's ``ServeConfig`` on one device.  ``donate_pools`` has
     no counterpart (the port's pools are updated in place, never donated);
-    ``role`` and ``migrate_on_alias`` belong to the cluster and mesh
-    slices of the port."""
+    ``migrate_on_alias`` belongs to the mesh slice of the port."""
     max_seqs: int = 8                 # decode slots = max batch per step
     block_size: int = 16              # tokens per KV block
     max_len: int = 512                # per-sequence token capacity
@@ -206,6 +228,13 @@ class ServeConfig:
                                       # prefix, snapshotable) so a
                                       # straggler cannot stall a rolling
                                       # restart (0 = unbounded)
+    role: str = "mixed"               # disaggregated serving: "mixed" plans
+                                      # everything; "prefill" plans prefill
+                                      # chunks only and parks decode-phase
+                                      # sequences for cluster migration;
+                                      # "decode" plans normally (it can
+                                      # recompute-prefill on fallback) —
+                                      # the Cluster keeps new prompts off it
 
     @property
     def blocks_per_seq(self) -> int:
@@ -250,6 +279,40 @@ class FinishedRequest:
     finish_reason: str = "length"     # stop | length | cancelled |
                                       # deadline | shed (load shedding) |
                                       # error (callback raise / fault)
+
+
+@dataclasses.dataclass
+class SequenceHandoff:
+    """One request's portable state for failover / migration: the request
+    state (slot-independent), its latency wall clocks, and — for a request
+    that was running on an attention-family engine — the committed hash
+    chain plus the bytes of its KV(+scale) blocks, ``(L, n_blocks, ...)``
+    tensors gathered from the source pools (on the source's device; host
+    tensors after ``snapshot.capture_requests``).  ``key`` is the exporter's
+    ``handoff_key()``; an adopter whose key differs falls back to
+    waiting-with-recompute, which is still byte-identical at temperature 0
+    (the recompute-preemption contract).  ``on_token`` / ``deadline`` ride
+    along in-process but are not serializable."""
+    state: RequestState
+    clocks: dict[str, float]
+    key: tuple = ()
+    num_cached: int = 0               # tokens the pool bytes cover
+    draft_cached: int = 0             # tokens the draft pool bytes cover
+    chain: list[int] = dataclasses.field(default_factory=list)
+    pools: dict[str, torch.Tensor] | None = None
+    draft_pools: dict[str, torch.Tensor] | None = None
+    on_token: Any = None
+    deadline: float | None = None
+
+
+# latency wall clocks that ride a hand-off (name -> the engine's per-rid
+# dict attribute), so TTFT / queue-wait / preempt-stall accounting survives
+# re-homing onto another replica
+_HANDOFF_CLOCKS = (("submit", "_submit_wall"), ("first_tok",
+                   "_first_tok_wall"), ("last_tok", "_last_tok_wall"),
+                   ("queue_wait", "_queue_wait"),
+                   ("preempt", "_preempt_wall"),
+                   ("preempt_stall", "_preempt_stall"))
 
 
 @dataclasses.dataclass
@@ -335,6 +398,9 @@ class Engine:
             if getattr(self.cfg, field) not in CACHE_DTYPES:
                 raise ValueError(f"{field} {getattr(self.cfg, field)!r} "
                                  f"not in {CACHE_DTYPES}")
+        if self.cfg.role not in ("mixed", "prefill", "decode"):
+            raise ValueError(f"role {self.cfg.role!r} "
+                             f"not in ('mixed', 'prefill', 'decode')")
         self.cache = model.init_paged_cache(
             num_blocks=self.cfg.pool_blocks(),
             block_size=self.cfg.block_size,
@@ -370,10 +436,11 @@ class Engine:
 
     @property
     def can_handoff_blocks(self) -> bool:
-        """Whether a running sequence could move to another engine as its
-        KV blocks: not for recurrent families, whose SSM/conv state is
-        per-slot, not per-block (the reference's gate; the port has no
-        hand-off yet)."""
+        """Whether a running sequence moves to another engine as its KV
+        blocks: not for recurrent families, whose SSM/conv state is
+        per-slot, not per-block, so it cannot ride the block transport.
+        Gated-off engines still hand requests off — as waiting-with-
+        recompute."""
         return not self._recurrent
 
     @property
@@ -921,7 +988,8 @@ class Engine:
                     plan = self.scheduler.plan_step(
                         self.cfg.chunk_size, self.cfg.prefill_budget,
                         plan_spec_k, self.cfg.spec_ema,
-                        allow_admission=not self._draining)
+                        allow_admission=not self._draining,
+                        prefill_only=self.cfg.role == "prefill")
                     break
                 except OutOfBlocks:
                     # a lone running request outgrew the pool — recover
@@ -1569,6 +1637,213 @@ class Engine:
         from repro_torch.serve import snapshot as _snap
         _snap.restore_into(self, snap)
 
+    # ----- failover hand-off / adoption -----
+    def handoff_key(self) -> tuple:
+        """Byte-compatibility fingerprint for migrated pool blocks: two
+        engines whose keys match write bit-identical KV(+scale) bytes at
+        the same block coordinates, so exported blocks scatter straight
+        into the adopter's pools.  A mismatch (another model tier, block
+        size or pool dtype) downgrades adoption to waiting-with-recompute.
+        """
+        return (self.model.cfg.name, self.model.cfg.vocab_size,
+                self.cfg.block_size, self.cfg.cache_dtype,
+                self.draft_model.cfg.name if self.spec_active else "",
+                self.cfg.draft_cache_dtype if self.spec_active else "")
+
+    def discard_inflight(self) -> None:
+        """Forget a dispatched-but-unreconciled step *without* its fetch —
+        failover salvage for a replica declared dead, whose in-flight
+        sample values are treated as lost.  The record's host buffer is
+        never read, and with ``pending`` cleared no later step feeds a
+        token from its device tensors (``_dispatch_decode`` reads a
+        record's tensors only for rows with a pending token).  Predicted
+        growth rolls back to known tokens (the clamp ``_recover``
+        applies), leaving the host state quiescent and exportable; the
+        dropped step's pool writes land before any later read or gather,
+        on the engine's one stream."""
+        self._pending = None
+        for s in list(self.scheduler.running) + list(self.scheduler.waiting):
+            s.pending = 0
+            s.num_cached = max(0, min(s.num_cached, len(s.seq) - 1))
+            s.draft_cached = min(s.draft_cached, max(s.num_cached, 0))
+
+    def decode_ready(self) -> list[int]:
+        """Rids whose prefill is complete (phase flipped to decode) — on a
+        prefill-role engine these are parked by ``prefill_only`` planning
+        and wait for the cluster to migrate them to a decode replica.  The
+        first token is already sampled (the final chunk's sampled
+        prefill), so a done request never shows up here."""
+        return [s.req.rid for s in self.scheduler.running
+                if s.phase == "decode" and not s.done]
+
+    def export_request(self, rid: int, remove: bool = False
+                       ) -> SequenceHandoff:
+        """Export one live (running or waiting) request as a
+        :class:`SequenceHandoff`.  A running request on a block-hand-off
+        engine carries its KV(+scale) block bytes — one gather per pool
+        over the slot's blocks — plus the committed hash chain, so a
+        byte-compatible adopter resumes decode without recompute and
+        re-registers the prefix in its own index.  ``remove=True`` also
+        retires the request here (releasing its slot), for live migration
+        off a draining or prefill engine."""
+        if self._pending is not None:
+            rec, self._pending = self._pending, None
+            self._reconcile(rec)
+        src = next((s for s in self.scheduler.running if s.req.rid == rid),
+                   None)
+        from_running = src is not None
+        if src is None:
+            src = next((s for s in self.scheduler.waiting
+                        if s.req.rid == rid), None)
+        if src is None:
+            raise KeyError(f"rid {rid} is not live")
+        st = copy.deepcopy(src)
+        st.pending = 0
+        st.num_cached = max(0, min(st.num_cached, len(st.seq) - 1))
+        st.draft_cached = min(st.draft_cached, st.num_cached)
+        clocks = {name: getattr(self, attr)[rid]
+                  for name, attr in _HANDOFF_CLOCKS
+                  if rid in getattr(self, attr)}
+        h = SequenceHandoff(state=st, clocks=clocks,
+                            key=self.handoff_key(),
+                            on_token=self._on_token.get(rid),
+                            deadline=self._deadline.get(rid))
+        if from_running and self.can_handoff_blocks and st.num_cached > 0:
+            blocks, chain = self.cache_host.export_slot(src.slot,
+                                                        st.num_cached)
+            h.num_cached = st.num_cached
+            h.chain = chain
+            h.pools = self._gather_blocks(self.cache, blocks)
+            if self.spec_active and st.draft_cached > 0:
+                nd = self.cache_host.blocks_for(st.draft_cached)
+                h.draft_pools = self._gather_blocks(self.draft_cache,
+                                                    blocks[:nd])
+                h.draft_cached = st.draft_cached
+        st.slot = -1
+        self.obs.event("export", rid)
+        if remove:
+            if from_running:
+                self.scheduler._release(src)
+            else:
+                self.scheduler.waiting.remove(src)
+            self._forget_rid(rid)
+        return h
+
+    def export_backlog(self, remove: bool = False) -> list[SequenceHandoff]:
+        """Export every waiting (not yet admitted, unfinished) request in
+        queue order — the dead or draining replica's backlog the cluster
+        re-homes onto survivors."""
+        rids = [s.req.rid for s in self.scheduler.waiting if not s.done]
+        return [self.export_request(rid, remove=remove) for rid in rids]
+
+    def adopt(self, h: SequenceHandoff) -> int:
+        """Adopt a handed-off request under a fresh local rid (returned).
+        When the hand-off carries block bytes, the engine is byte-
+        compatible (``handoff_key``), and a free slot and pool room exist,
+        the blocks import directly (``PagedCache.import_slot``) and the
+        request resumes decode with zero recompute; otherwise it joins the
+        waiting queue and re-prefills its known prefix — either way the
+        token stream is byte-identical at temperature 0.  Raises
+        ValueError if the request cannot fit this engine at all."""
+        st = copy.deepcopy(h.state)
+        req = st.req
+        if len(req.prompt) + req.max_new_tokens > self.cache_host.max_len:
+            raise ValueError(
+                f"adopt: prompt+max_new "
+                f"{len(req.prompt) + req.max_new_tokens} exceeds per-seq "
+                f"capacity {self.cache_host.max_len}")
+        worst = self.cache_host.blocks_for(
+            len(req.prompt) + req.max_new_tokens)
+        if worst > self.cache_host.allocator.num_blocks - 1:
+            raise ValueError(f"adopt: needs up to {worst} blocks but the "
+                             f"pool has "
+                             f"{self.cache_host.allocator.num_blocks - 1}")
+        rid = self._rid
+        self._rid += 1
+        st.req = dataclasses.replace(req, rid=rid)
+        st.slot = -1
+        st.pending = 0
+        self._submit_wall[rid] = h.clocks.get("submit", time.time())
+        for name, attr in _HANDOFF_CLOCKS:
+            if name != "submit" and name in h.clocks:
+                getattr(self, attr)[rid] = h.clocks[name]
+        if h.on_token is not None:
+            self._on_token[rid] = h.on_token
+        if h.deadline is not None:
+            self._deadline[rid] = h.deadline
+        self.obs.event("adopt", rid)
+        if not self._adopt_blocks(st, h):
+            st.num_cached = 0
+            st.draft_cached = 0
+            self.scheduler.adopt_waiting(st)
+        return rid
+
+    def _adopt_blocks(self, st: RequestState, h: SequenceHandoff) -> bool:
+        """Seat an adopted request straight into a slot with its migrated
+        block bytes.  False (nothing mutated) when the hand-off carries no
+        bytes, the keys differ, no slot is free, or the pool lacks room —
+        the caller falls back to waiting-with-recompute.  A failure of the
+        scatter itself raises: it is never turned into a recompute."""
+        if (h.pools is None or h.key != self.handoff_key()
+                or not self.can_handoff_blocks
+                or not self.scheduler._free_slots):
+            return False
+        cache, sched = self.cache_host, self.scheduler
+        slot = sched._pick_slot()
+        n = next(iter(h.pools.values())).shape[1]
+        try:
+            dst = cache.import_slot(slot, n, h.chain,
+                                    n_tokens=st.seq_len + 1)
+        except OutOfBlocks:
+            return False
+        st.num_cached = h.num_cached
+        sched.adopt_running(st, slot)
+        self._scatter_blocks(self.cache, h.pools, dst)
+        moved = n
+        if self.spec_active and h.draft_pools is not None \
+                and h.draft_cached > 0:
+            nd = next(iter(h.draft_pools.values())).shape[1]
+            self._scatter_blocks(self.draft_cache, h.draft_pools, dst[:nd])
+            st.draft_cached = h.draft_cached
+            moved += nd
+        else:
+            st.draft_cached = 0
+        self._c["migrated_blocks"].inc(moved)
+        self._admit_step.setdefault(st.req.rid, self._steps)
+        return True
+
+    def _block_index(self, blocks: list[int]) -> torch.Tensor:
+        """Block ids as an index tensor on the engine's device (pinned and
+        non-blocking on the card, so nothing waits for the device)."""
+        idx = torch.tensor(blocks, dtype=torch.long)
+        if self.device.type == "cuda":
+            idx = idx.pin_memory().to(self.device, non_blocking=True)
+        return idx
+
+    def _gather_blocks(self, pools: dict, blocks: list[int]) -> dict:
+        """The bytes of ``blocks`` in each pool entry that uses block
+        addressing (blocks are pool axis 1, as in ``_cow_impl``).  Each
+        entry is gathered as raw bytes (a uint8 view, so bf16, int8, fp8
+        and the f32 scales move alike) by ``index_select``, which writes
+        a new tensor: the hand-off owns its bytes, and the source may
+        reuse the blocks at once."""
+        idx = self._block_index(blocks)
+        return {name: pools[name].view(torch.uint8).index_select(1, idx)
+                .view(pools[name].dtype)
+                for name in _POOL_KEYS if name in pools}
+
+    def _scatter_blocks(self, pools: dict, vals: dict,
+                        blocks: list[int]) -> None:
+        """Write migrated block bytes into this engine's pools, in place,
+        at the freshly imported block ids (``index_copy_`` of raw bytes;
+        bytes from another device are copied here first)."""
+        idx = self._block_index(blocks)
+        for name, v in vals.items():
+            if name in pools:
+                dst = pools[name].view(torch.uint8)
+                dst.index_copy_(1, idx, v.to(self.device).contiguous()
+                                .view(torch.uint8))
+
     # ----- results -----
     def _record(self, s: RequestState) -> FinishedRequest:
         """One finished request's result + latency record, built from the
@@ -1682,5 +1957,6 @@ class Engine:
             "requests_shed": d["requests_shed"],
             "audit_violations": d["audit_violations"],
             "callback_errors": d["callback_errors"],
+            "migrated_blocks": d["migrated_blocks"],
         }
         return out, stats

@@ -23,6 +23,12 @@ needs to resume *byte-identically*:
 NOT captured: ``on_token`` callbacks (arbitrary closures are not
 serializable; a restored engine streams nothing for pre-crash requests).
 
+``capture_requests`` / ``adopt_requests`` move single requests instead of a
+whole engine (failover hand-off): each request's state, clocks and — for a
+running request of an attention family — its hash chain and the bytes of
+its KV(+scale) blocks, copied to the host in the pool format above, under a
+header with the exporter's ``handoff_key``.
+
 File format, the reference's: an 8-byte magic, a little-endian u32 header
 length, a JSON header (version, the full ServeConfig, model identity) for
 cheap validation without unpickling, then one pickle with the host state and
@@ -288,6 +294,118 @@ def restore_into(engine, snap: dict) -> None:
     if engine.spec_active:
         _load_pools(engine.draft_cache, snap["draft_pools"])
     cache.check()                       # restored state must audit clean
+
+
+# ----- partial (per-request) capture: failover hand-off -----
+
+HANDOFF_FORMAT = "repro-serve-handoff"
+
+
+def _tensors(saved: dict | None) -> dict | None:
+    """Host tensors from ``_pool_bytes`` entries (a hand-off's blocks)."""
+    if saved is None:
+        return None
+    return {name: torch.from_numpy(np.ascontiguousarray(raw)).view(
+        getattr(torch, dtype)).reshape(shape)
+        for name, (dtype, shape, raw) in saved.items()}
+
+
+def _check_blocks(engine_pools: dict, saved: dict, what: str) -> None:
+    """Refuse block bytes whose names, dtypes or per-block shapes differ
+    from the engine's pools (the block count is the hand-off's own)."""
+    for name, (dtype, shape, raw) in saved.items():
+        t = engine_pools.get(name)
+        if t is None:
+            raise ValueError(f"{what} block bytes for pool {name}, which "
+                             f"the engine does not have")
+        want = str(t.dtype).removeprefix("torch.")
+        shape = tuple(shape)
+        if dtype != want or len(shape) != t.dim() or \
+                shape[:1] + shape[2:] != t.shape[:1] + t.shape[2:] or \
+                raw.size != int(np.prod(shape)) * t.element_size():
+            raise ValueError(f"{what} block bytes {name}: {dtype} {shape}, "
+                             f"the engine's pool {want} "
+                             f"{tuple(t.shape)}")
+
+
+def capture_requests(engine, rids=None) -> dict:
+    """Capture a serializable hand-off bundle for a subset of requests.
+
+    Unlike :func:`capture` this does not freeze the whole engine — it
+    exports individual unfinished requests (running ones with their block
+    bytes when the engine supports block hand-off, copied to the host) so
+    a cluster, or a cold process, can re-home exactly those sequences onto
+    another engine via :func:`adopt_requests`.  ``rids=None`` means every
+    unfinished request.  The source engine is left untouched (pass the
+    rids through ``Engine.export_request(remove=True)`` yourself when you
+    want them gone).  ``on_token`` callbacks are not serializable and are
+    dropped."""
+    sched = engine.scheduler
+    if rids is None:
+        rids = [s.req.rid for s in list(sched.running) +
+                list(sched.waiting) if not s.done]
+    reqs = []
+    for rid in rids:
+        h = engine.export_request(rid)
+        reqs.append({
+            "state": h.state,
+            "clocks": dict(h.clocks),
+            "deadline": h.deadline,
+            "num_cached": h.num_cached,
+            "draft_cached": h.draft_cached,
+            "chain": list(h.chain),
+            "pools": None if h.pools is None else _pool_bytes(h.pools),
+            "draft_pools": None if h.draft_pools is None
+            else _pool_bytes(h.draft_pools),
+        })
+    header = {
+        "format": HANDOFF_FORMAT,
+        "version": VERSION,
+        "model": engine.model.cfg.name,
+        "vocab_size": engine.model.cfg.vocab_size,
+        "handoff_key": list(engine.handoff_key()),
+    }
+    # the host tree is deep-copied (the exported states are already
+    # copies, the block bytes fresh host arrays)
+    return {"header": header, "requests": copy.deepcopy(reqs)}
+
+
+def adopt_requests(engine, snap: dict) -> list[int]:
+    """Adopt every request of a :func:`capture_requests` bundle; returns the
+    new rids in bundle order.
+
+    The bundle is validated before anything is adopted: format and version,
+    and — when its ``handoff_key`` matches the engine's, so the bytes would
+    be scattered — each request's block bytes against the engine's pools
+    (ValueError).  With another key each request falls back to
+    waiting-with-recompute (still byte-identical at temperature 0)."""
+    from repro_torch.serve.engine import SequenceHandoff
+    h = snap["header"]
+    if h.get("format") != HANDOFF_FORMAT:
+        raise ValueError("not a serve handoff bundle")
+    if h.get("version") != VERSION:
+        raise ValueError(f"handoff version {h.get('version')} != "
+                         f"{VERSION}")
+    key = tuple(h["handoff_key"])
+    if key == engine.handoff_key() and engine.can_handoff_blocks:
+        for r in snap["requests"]:
+            if r["pools"] is not None:
+                _check_blocks(engine.cache, r["pools"], "target")
+            if r["draft_pools"] is not None and engine.spec_active:
+                _check_blocks(engine.draft_cache, r["draft_pools"],
+                              "draft")
+    out = []
+    # deep-copy so the bundle stays reusable after the engine starts
+    # mutating the adopted RequestStates
+    for r in snap["requests"]:
+        out.append(engine.adopt(SequenceHandoff(
+            state=copy.deepcopy(r["state"]), clocks=dict(r["clocks"]),
+            key=key, num_cached=r["num_cached"],
+            draft_cached=r["draft_cached"], chain=list(r["chain"]),
+            pools=_tensors(r["pools"]),
+            draft_pools=_tensors(r["draft_pools"]),
+            deadline=r["deadline"])))
+    return out
 
 
 def restore_engine(snap: dict, model, params, draft_model=None,

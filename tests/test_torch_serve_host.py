@@ -1,5 +1,5 @@
 """The port's copies of the host-side serving core (``kv_cache.py``,
-``scheduler.py``, ``faults.py``) against the originals: the first two are
+``scheduler.py``, ``faults.py``, ``cluster.py``) against the originals: the first two are
 driven by one seeded sequence of operations and must agree **exactly** —
 allocator state, block tables, prefix index, raised errors and
 ``StepPlan``s.
@@ -9,22 +9,23 @@ import inspect
 import numpy as np
 import pytest
 
-from repro.serve import (faults as j_faults, kv_cache as j_kv,
-                         scheduler as j_sched)
-from repro_torch.serve import (faults as t_faults, kv_cache as t_kv,
-                               scheduler as t_sched)
+from repro.serve import (cluster as j_cluster, faults as j_faults,
+                         kv_cache as j_kv, scheduler as j_sched)
+from repro_torch.serve import (cluster as t_cluster, faults as t_faults,
+                               kv_cache as t_kv, scheduler as t_sched)
 
 _COPIES = {"kv_cache": (t_kv, j_kv), "scheduler": (t_sched, j_sched),
-           "faults": (t_faults, j_faults)}
+           "faults": (t_faults, j_faults), "cluster": (t_cluster, j_cluster)}
 
 
 @pytest.mark.parametrize("name", sorted(_COPIES))
 def test_copies_are_verbatim(name):
-    """kv_cache and faults: whole file; scheduler: everything but its one
-    import."""
+    """kv_cache and faults: whole file; scheduler and cluster: everything
+    but their imports of the package (``from repro.`` becomes ``from
+    repro_torch.``)."""
     port, ref = _COPIES[name]
-    want = inspect.getsource(ref).replace("from repro.serve.kv_cache",
-                                          "from repro_torch.serve.kv_cache")
+    want = inspect.getsource(ref).replace("\nfrom repro.",
+                                          "\nfrom repro_torch.")
     assert inspect.getsource(port) == want
 
 

@@ -355,8 +355,11 @@ def test_drain_timeout_force_preempts_stragglers(monkeypatch):
 def _cli(argv, stop_after=None):
     """Run the serving CLI in this process; with ``stop_after``, deliver a
     SIGTERM to the handler it installs once that many engine steps ran (the
-    handler is recorded instead of installed)."""
+    handler is recorded instead of installed).  The engine module reads a
+    fixed clock, so ``--degrade``'s shedding of aged waiting requests and
+    any drain deadline cannot depend on how fast the host runs."""
     from repro_torch.launch import serve as cli
+    from test_torch_serve_async import FakeClock
     installed: dict = {}
 
     def fake_signal(sig, handler):
@@ -377,6 +380,7 @@ def _cli(argv, stop_after=None):
     try:
         mp.setattr(cli.signal, "signal", fake_signal)
         mp.setattr(engine_mod.Engine, "step_async", step_async)
+        mp.setattr(engine_mod, "time", FakeClock(tick=0.0))
         cli.main(argv)
     finally:
         mp.undo()
