@@ -62,7 +62,16 @@ nothing of JAX or of the JAX package.  Phases:
     single-engine run (exactly where a request's schedule matches, a
     migration counting as a change, else by teacher forcing), the counts
     to their formulas, K1's launches to layers x device calls over every
-    replica;
+    replica; then (4d) sharded serving on the same model (a generator of
+    its own): K1 at every per-shard shape against its plain version, then
+    8 of phase 4's requests (the shortest prefix one staged alone first)
+    over logical (data, model) meshes of this one card — 1x1 token-equal
+    to the no-mesh engine, 2x1, 4x1, 1x2, 1x4 and 2x2 held to 1x1 by
+    teacher forcing through a 1x1 engine, 4x1's cross-shard prefix blocks
+    moved, a float32 twin at 2 layers token-exact on every mesh, int8
+    pools on 1x2 — with K1's launches held to shards x layers x device
+    calls, the pool replicas audited, and each mesh's tok/s, peak memory,
+    collective bytes by kind and intra-mesh move time printed;
  5. times of the device code around the kernel (KV scatter, sampling, COW);
  6. the OBSPA sweep kernel K4 against its plain PyTorch version and the
     float64 oracle (the reference's test shapes, identity Hessian, a batched
@@ -282,6 +291,9 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention import plan as k1_plan  # noqa: E402
 from repro_torch.kernels.paged_attention.paged_attention import (  # noqa: E402
     sm_count as k1_sm_count)
+from repro_torch.distributed.collectives import (  # noqa: E402
+    collective_bytes, reset_collectives)
+from repro_torch.launch.mesh import make_serve_mesh  # noqa: E402
 from repro_torch.launch.serve import generate  # noqa: E402
 from repro_torch.models import build  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
@@ -1235,6 +1247,7 @@ def phase_main_path(rng, quick: bool, profile: bool = False,
                                          seed)
     res["cluster"] = phase_cluster(model, params, scfg, reqs, out, ref_sig,
                                    seed)
+    res["sharded"] = phase_sharded(model, params, scfg, reqs, seed)
     del params
     torch.cuda.empty_cache()
     return res
@@ -2109,6 +2122,354 @@ def phase_cluster(model, params, scfg, reqs, ref, ref_sig, seed: int) -> dict:
     print(f"  4c: {res['seconds']:.1f} s; peak memory "
           f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; K1 launches "
           f"{res['k1_launches']} ({card})", flush=True)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 4d: sharded serving over logical (data, model) meshes of the card
+# ---------------------------------------------------------------------------
+
+# 4d's requests: phase 4's mix, the first ``shared`` behind its 512-token
+# prefix and ``requests - shared`` independent ones, ``gen`` new tokens
+# each; the meshes (data, model) after the 1x1 one; the float32 twin's
+# depth; the int8 run's requests and mesh
+SHARDED = dict(requests=8, shared=4, gen=16,
+               meshes=((2, 1), (4, 1), (1, 2), (1, 4), (2, 2)),
+               twin_layers=2, int8_requests=4, int8_mesh=(1, 2))
+# float32 twin: every emitted position's top-2 gap on the 1x1 run must
+# exceed this before tokens are compared exactly (the shards' partial sums
+# move an f32 logit by ~1e-6)
+GAP_F32 = 2e-5
+# (b) and (e): a forced token's 1x1 logit may fall this far short of the
+# 1x1 maximum.  Data-parallel shards compute each row as one device does,
+# up to K1's split count and cuBLAS's kernel at their row count: one bf16
+# step of the maximum.  Tensor-parallel shards also round each shard's
+# partial product to bf16 before the all-reduce adds it, twice a layer, so
+# their activations are rounded at other places, as phase 4's paged steps
+# are against the full-sequence forward: they are held to phase 4's
+# teacher-forcing bound (``tf_tol``, 0.25 on the logits).
+SHARD_TOL_DP_STEPS = 1.0
+SHARD_TOL_TP = 0.25
+
+
+def sharded_requests(reqs, n: int, shared: int, gen: int) -> list[dict]:
+    """Phase 4's first ``shared`` requests behind its prefix (each with a
+    tail of its own; the shortest first, the one staged alone) and its
+    first ``n - shared`` independent ones."""
+    pre = sorted([r for i, r in enumerate(reqs) if i % 3 == 0][:shared],
+                 key=lambda r: len(r["prompt"]))
+    ind = [r for i, r in enumerate(reqs) if i % 3 != 0][:n - shared]
+    return [{"prompt": r["prompt"], "max_new_tokens": gen}
+            for r in pre + ind]
+
+
+def record_emitted(engine, force: dict | None = None) -> dict:
+    """Wrap ``engine`` so that every emitted token's logits row is kept
+    (float32, on the card): ``{rid: [row, ...]}`` in emission order.  With
+    ``force`` ({rid: tokens}) each emitted token is replaced by force's at
+    its index once it is folded — teacher forcing through the engine's own
+    paged steps, so the rows are what this engine computes on the forced
+    sequences.  Lockstep ``step()`` only (one prefill and one decode
+    ``_sample`` call a step on a one-program engine)."""
+    rows: dict[int, list] = {}
+    calls: list = []
+    sample, reconcile = engine._sample, engine._reconcile
+
+    def capture(logits, temps, t_dev=None, gen=None):
+        calls.append(logits)
+        return sample(logits, temps, t_dev, gen)
+
+    def fold(rec, newer=None):
+        got = list(calls)
+        calls.clear()
+        pre = got[0] if rec.plan.prefill else None
+        dec = got[-1] if rec.plan.decode else None
+        reconcile(rec, newer)
+        emitted = [(st, pre[slot]) for st, slot in rec.pre_rows] + \
+            [(st, dec[slot]) for st, slot, emit in rec.decode_rows if emit]
+        for st, row in emitted:
+            got_rows = rows.setdefault(st.req.rid, [])
+            got_rows.append(row.float())
+            if force is not None:
+                st.generated[len(got_rows) - 1] = \
+                    force[st.req.rid][len(got_rows) - 1]
+
+    engine._sample, engine._reconcile = capture, fold
+    return rows
+
+
+def staged_serve(engine, reqs) -> dict:
+    """4d's staging, the reference's ``_staged_cross_shard``: the first
+    request alone until its prefill is done (its prompt blocks cached), then
+    the rest; lockstep.  Returns {rid: tokens}."""
+    engine.add_request(**reqs[0])
+    while not any(s.generated for s in engine.scheduler.running):
+        engine.step()
+    for r in reqs[1:]:
+        engine.add_request(**r)
+    while engine.scheduler.has_work:
+        engine.step()
+    return {s.req.rid: list(s.generated) for s in engine.scheduler.finished}
+
+
+def bf16_step(x: float) -> float:
+    """The spacing of bf16 numbers at ``x`` (8 significand bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def forced_shortfall(model, params, scfg, seqs: list) -> list[dict]:
+    """Teacher forcing against the 1x1 mesh: one 1x1 engine serves every
+    ``(request, tokens)`` of ``seqs`` with its tokens forced.  A row's
+    logits depend on its own sequence only (every call's shapes are fixed
+    by the ServeConfig, and a prefix block computed by another request
+    holds the bytes this one would compute), so the sequences of several
+    meshes share one run.  Returns, per sequence, the largest amount by
+    which a forced token's logit falls short of its row's maximum, in bf16
+    steps of that maximum, and the share of forced tokens that are their
+    row's argmax."""
+    eng = Engine(model, params, scfg, mesh=make_serve_mesh(
+        1, 1, devices=[DEV]))
+    force = {k: toks for k, (_, toks) in enumerate(seqs)}
+    rows = record_emitted(eng, force=force)
+    for r, _ in seqs:
+        eng.add_request(**r)
+    while eng.scheduler.has_work:
+        eng.step()
+    out = []
+    for k, (_, toks) in enumerate(seqs):
+        tops = [float(row.max()) for row in rows[k]]
+        short = [t - float(row[tok])
+                 for t, row, tok in zip(tops, rows[k], toks)]
+        out.append({"max_shortfall": max(short),
+                    "max_shortfall_bf16_steps": max(
+                        d / bf16_step(t) for d, t in zip(short, tops)),
+                    "argmax_share": float(np.mean([d == 0 for d in short]))})
+    del eng
+    return out
+
+
+def merged_forced(fs: list[dict], exact: int = 0) -> dict:
+    """One mesh's forced sequences together (``exact`` token-equal requests
+    count as argmax everywhere)."""
+    return {"max_shortfall": max([f["max_shortfall"] for f in fs],
+                                 default=0.0),
+            "max_shortfall_bf16_steps": max(
+                [f["max_shortfall_bf16_steps"] for f in fs], default=0.0),
+            "argmax_share": float(np.mean(
+                [f["argmax_share"] for f in fs] + [1.0] * exact))}
+
+
+def check_forced(label: str, dm, forced: dict) -> str:
+    """Hold a mesh's forced shortfall to its bound (``SHARD_TOL_*``);
+    returns the bound's text."""
+    if dm[1] == 1 and forced.get("mode") == "dp":
+        ok = forced["max_shortfall_bf16_steps"] <= SHARD_TOL_DP_STEPS
+        text = f"{SHARD_TOL_DP_STEPS:g} bf16 step"
+    else:
+        ok = forced["max_shortfall"] <= SHARD_TOL_TP
+        text = f"{SHARD_TOL_TP} (tensor parallel)"
+    if not ok:
+        raise AssertionError(f"4d {label}: a forced token falls "
+                             f"{forced['max_shortfall']} "
+                             f"({forced['max_shortfall_bf16_steps']} bf16 "
+                             f"steps) short of the 1x1 maximum, over {text}")
+    return text
+
+
+def mesh_run(label, model, params, scfg, reqs, dm, L: int,
+             record: bool = False, card: str = ""
+             ) -> tuple[dict, dict, dict | None]:
+    """One staged serve on a (data, model) mesh of ``[DEV] * d·m`` (no mesh
+    for ``dm`` None): (its numbers — tok/s, peak memory, collective bytes
+    by kind, the intra-mesh move time and counters, K1's launches held to
+    shards x layers x device calls, the replica audit —, its tokens, and
+    with ``record`` its emitted logits rows)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = None if dm is None else make_serve_mesh(
+        *dm, devices=[DEV] * (dm[0] * dm[1]))
+    # telemetry where blocks move (dp meshes): it times the intra-mesh moves
+    tel = Telemetry(enabled=dm is not None and dm[0] > 1 and dm[1] == 1)
+    eng = Engine(model, params, scfg, mesh=mesh, telemetry=tel)
+    rows = record_emitted(eng) if record else None
+    reset_collectives()
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    toks = staged_serve(eng, reqs)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = launch_counts()
+    c = {k: eng._c[k].value for k in ("decode_calls", "prefill_calls",
+                                      "decode_tokens", "prefill_tokens",
+                                      "shard_moves", "alias_refusals",
+                                      "host_syncs", "steps")}
+    S = 1 if mesh is None else mesh.size
+    want = {"decode": S * L * c["decode_calls"],
+            "prefill": S * L * c["prefill_calls"]}
+    if {k: launches[k] for k in want} != want or launches["total"] == 0:
+        raise AssertionError(f"4d {label}: K1 launches {launches} != shards "
+                             f"{S} x {L} layers x device calls {want}")
+    if len(toks) != len(reqs) or any(
+            len(t) != r["max_new_tokens"] for t, r in zip(
+                toks.values(), reqs)):
+        raise AssertionError(f"4d {label}: not every request finished")
+    audit = eng.replica_audit()
+    eng.cache_host.check()
+    h = tel.registry.histograms.get("migrate/intra_mesh_s")
+    res = {"mesh": list(dm) if dm else None, "mode": eng.shard_mode,
+           "wall_s": wall, "new_tok_per_s": c["decode_tokens"] / wall,
+           "total_tok_per_s": (c["decode_tokens"] + c["prefill_tokens"])
+           / wall, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "collectives": collective_bytes(), "k1_launches": launches,
+           "intra_mesh_s": h.summary() if h is not None else None,
+           "audit": audit, **c}
+    coll = res["collectives"]["per_kind"]
+    print(f"  {label:6s} {eng.shard_mode:5s} {wall:6.2f} s ({card}): "
+          f"{res['new_tok_per_s']:.1f} new tok/s, "
+          f"{res['total_tok_per_s']:.1f} tok/s with prefill; peak "
+          f"{res['peak_mem_bytes'] / 2**30:.2f} GiB; collectives "
+          f"{ {k: v for k, v in coll.items()} } B; shard_moves "
+          f"{c['shard_moves']}, alias_refusals {c['alias_refusals']}, "
+          f"intra-mesh moves "
+          f"{'none' if h is None else f'{h.total * 1e3:.3f} ms host'}; "
+          f"K1 {launches['decode']} + {launches['prefill']} = {S} x {L} x "
+          f"({c['decode_calls']} + {c['prefill_calls']}); audit {audit}",
+          flush=True)
+    del eng
+    return res, toks, rows
+
+
+def sharded_k1_checks(rng) -> float:
+    """K1 against its plain version at the per-shard shapes the meshes give
+    it (B 16 / 8 rows, KH 2 / 1; G 8, D 64, bs 16, NB 80), decode and the
+    prefill entry at C 128, phase 3's tolerances."""
+    worst = 0.0
+    for B, KH in ((16, 4), (8, 4), (32, 2), (32, 1), (16, 2)):
+        shape = dict(B=B, H=8 * KH, KH=KH, D=64, DV=64, bs=16, NB=80,
+                     q_dtype=torch.bfloat16, pool=torch.bfloat16)
+        lens = ragged(rng, B, 1, 1280)
+        worst = max(worst, check_case(
+            f"4d shard decode B{B} KH{KH}",
+            make_case(rng, C=1, kv_lens=lens, **shape)))
+        valid = rng.integers(1, 129, size=B).astype(np.int32)
+        starts = ragged(rng, B, 0, 1280 - 128)
+        worst = max(worst, check_case(
+            f"4d shard prefill B{B} KH{KH} C128",
+            make_case(rng, C=128, kv_lens=starts + valid, q_starts=starts,
+                      **shape), prefill=True, valid=valid))
+    return worst
+
+
+def phase_sharded(model, params, scfg, reqs, seed: int) -> dict:
+    """Phase 4d on phase 4's model, ``ServeConfig`` and request mix: the
+    engine over logical (data, model) meshes of this one card, each shard a
+    torch device entry ``cuda:0``.  (a) 1x1 against the no-mesh engine,
+    token for token; (b) every other mesh held to 1x1 by teacher forcing
+    through a 1x1 engine (one bf16 step of the maximum), exact requests
+    counted; (c) 4x1's cross-shard aliases moved, none refused; (d) a
+    float32 twin at ``twin_layers`` on every mesh, token-exact against its
+    own 1x1 run after its top-2 gaps; (e) int8 pools on ``int8_mesh`` by
+    teacher forcing against int8 on 1x1.  K1 at the per-shard shapes
+    against its plain version first; its generator is ``[seed, 4, 4]``."""
+    t_start = time.time()
+    card = nvidia_smi_line()
+    print(f"phase 4d: sharded serving over logical meshes of one card "
+          f"({card})", flush=True)
+    rng = np.random.default_rng([seed, 4, 4])
+    sh = SHARDED
+    L = model.cfg.num_layers
+    res = {"card": card, "k1_max_abs_err": sharded_k1_checks(rng)}
+    rq = sharded_requests(reqs, sh["requests"], sh["shared"], sh["gen"])
+    base, none_toks, _ = mesh_run("none", model, params, scfg, rq, None, L,
+                                   card=card)
+    one, one_toks, _ = mesh_run("1x1", model, params, scfg, rq, (1, 1), L,
+                                card=card)
+    if one_toks != none_toks:
+        raise AssertionError("4d (a): the 1x1 mesh's tokens differ from the "
+                             "no-mesh engine's")
+    res["none"], res["1x1"] = base, one
+    differ = []                      # (mesh label, rid) forced through 1x1
+    for dm in sh["meshes"]:
+        label = f"{dm[0]}x{dm[1]}"
+        r, toks, _ = mesh_run(label, model, params, scfg, rq, dm, L,
+                              card=card)
+        r["exact_requests"] = sum(toks[k] == one_toks[k] for k in toks)
+        r["tokens"] = toks
+        differ += [(label, k) for k in sorted(toks)
+                   if toks[k] != one_toks[k]]
+        res[label] = r
+    forced = forced_shortfall(model, params, scfg, [
+        (rq[k], res[label]["tokens"][k]) for label, k in differ]) \
+        if differ else []
+    for dm in sh["meshes"]:
+        label = f"{dm[0]}x{dm[1]}"
+        r = res[label]
+        r["forced"] = merged_forced(
+            [f for (lb, _), f in zip(differ, forced) if lb == label],
+            r["exact_requests"])
+        r["forced"]["mode"] = r["mode"]
+        del r["tokens"]
+        tol = check_forced(f"(b) {label}", dm, r["forced"])
+        print(f"    {label}: {r['exact_requests']} of {len(rq)} requests "
+              f"token-equal to 1x1; the others teacher forced through 1x1: "
+              f"max shortfall {r['forced']['max_shortfall']:.4f} = "
+              f"{r['forced']['max_shortfall_bf16_steps']:.2f} bf16 steps "
+              f"(tol {tol}), argmax share "
+              f"{r['forced']['argmax_share']:.3f}", flush=True)
+    if not (res["4x1"]["shard_moves"] > 0
+            and res["4x1"]["alias_refusals"] == 0):
+        raise AssertionError("4d (c): 4x1 moved no block across shards, or "
+                             "refused an alias")
+
+    # (d) the float32 twin: exact tokens on every mesh, gaps first
+    n = sh["twin_layers"]
+    twin = build(model.cfg.replace(num_layers=n, dtype="float32"))
+    tp = f32_tree(first_layers(params, n))
+    t1, t1_toks, rows = mesh_run("f32 1x1", twin, tp, scfg, rq, (1, 1), n,
+                                 record=True, card=card)
+    gap = min(float((lambda v: v[0] - v[1])(row.topk(2).values))
+              for rr in rows.values() for row in rr)
+    if gap <= GAP_F32:
+        raise AssertionError(f"4d (d): the twin's smallest top-2 gap {gap} "
+                             f"<= {GAP_F32}")
+    twins = {"1x1": t1, "min_top2_gap": gap}
+    for dm in sh["meshes"]:
+        label = f"f32 {dm[0]}x{dm[1]}"
+        r, toks, _ = mesh_run(label, twin, tp, scfg, rq, dm, n, card=card)
+        if toks != t1_toks:
+            raise AssertionError(f"4d (d) {label}: tokens differ from the "
+                                 f"twin's 1x1 run")
+        twins[label] = r
+    print(f"    float32 twin at {n} layers: every mesh token-exact against "
+          f"1x1 (smallest top-2 gap {gap:.3e} > {GAP_F32})", flush=True)
+    res["float32_twin"] = twins
+    del twin, tp
+
+    # (e) int8 pools on int8_mesh, teacher forced through int8 on 1x1
+    q8 = dataclasses.replace(scfg, cache_dtype="int8")
+    rq8 = rq[:sh["int8_requests"]]
+    dm = sh["int8_mesh"]
+    r8, toks8, _ = mesh_run(f"int8 {dm[0]}x{dm[1]}", model, params, q8, rq8,
+                            dm, L, card=card)
+    r8["forced"] = merged_forced(forced_shortfall(
+        model, params, q8, [(rq8[k], toks8[k]) for k in sorted(toks8)]))
+    r8["forced"]["mode"] = r8["mode"]
+    tol = check_forced(f"(e) int8 {dm[0]}x{dm[1]}", dm, r8["forced"])
+    print(f"    int8 {dm[0]}x{dm[1]}: teacher forced through int8 1x1: max "
+          f"shortfall {r8['forced']['max_shortfall']:.4f} = "
+          f"{r8['forced']['max_shortfall_bf16_steps']:.2f} bf16 steps (tol "
+          f"{tol}), argmax share {r8['forced']['argmax_share']:.3f}",
+          flush=True)
+    res["int8"] = r8
+    res["k1_launches"] = {k: sum(res[m]["k1_launches"][k] for m in
+                                 ["1x1"] + [f"{a}x{b}" for a, b in
+                                            sh["meshes"]])
+                          for k in ("decode", "prefill")}
+    res["seconds"] = time.time() - t_start
+    print(f"  4d: {res['seconds']:.1f} s; K1 launches on the bf16 meshes "
+          f"{res['k1_launches']} ({card})", flush=True)
+    torch.cuda.empty_cache()
     return res
 
 
@@ -6187,15 +6548,18 @@ def main() -> int:
     front = main_res["front_door"]
     phase_s["phase 4b (within phase 4)"] = front["seconds"]
     phase_s["phase 4c (within phase 4)"] = main_res["cluster"]["seconds"]
+    phase_s["phase 4d (within phase 4)"] = main_res["sharded"]["seconds"]
     kernels[0]["launches"] = main_res["k1_launches"]["decode"]
     kernels[1]["launches"] = main_res["k1_launches"]["prefill"]
     for k, entry in (("decode", kernels[0]), ("prefill", kernels[1])):
         entry["launches_front_door_async"] = \
             front["async_vs_lockstep"]["async"][0]["k1_launches"][k]
         entry["launches_cluster"] = main_res["cluster"]["k1_launches"][k]
+        entry["launches_sharded"] = main_res["sharded"]["k1_launches"][k]
     kernels[0]["build"] = kernels[1]["build"] = build_summary(k1_build)
     for k in kernels:
-        k["max_abs_err"] = max(k["max_abs_err"], worst)
+        k["max_abs_err"] = max(k["max_abs_err"], worst,
+                               main_res["sharded"]["k1_max_abs_err"])
     dev_res = phase_device_code(rng)
     prune_res = phase_prune_path(rng, args.quick)
     lap("phases 5, 7")

@@ -17,6 +17,9 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
       --reduced --replicas 2 [--prefill-replicas 1] --device cpu
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
+      --reduced --mesh 1x1 --device cpu
+
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --reduced --prune-ratio 0.5 [--obspa] --device cpu
 
@@ -80,6 +83,13 @@ disaggregates: M prefill-role replicas take the prompts and hand each
 finished prompt's KV blocks to one of ``--replicas`` decode-role replicas.
 The previous SIGTERM / SIGINT / SIGHUP handlers come back after the run.
 
+``--mesh DxM`` (or ``auto``: every device on the data axis) serves over a
+(data, model) mesh of the CUDA devices — of the one CPU device with
+``--device cpu`` — and so does every replica and a ``--restore``d engine:
+request slots data-parallel, pools and heads tensor-parallel
+(``distributed.tensor_parallel``); a mesh larger than the devices fails
+with the reference's message.
+
 ``generate`` (sequential, token-by-token over a contiguous cache) is kept as
 the correctness oracle the engine is tested against.
 """
@@ -142,6 +152,16 @@ def drain_on_signal(stop: dict):
     return handler
 
 
+def serve_mesh(args, device):
+    """The ``--mesh`` mesh (None without the flag): over the CUDA devices,
+    or over ``device`` when it is the CPU."""
+    if not args.mesh:
+        return None
+    from repro_torch.launch.mesh import parse_mesh
+    return parse_mesh(args.mesh,
+                      devices=None if device.type == "cuda" else [device])
+
+
 def build_engine(model, params, args, draft_model, draft_params,
                  telemetry, device, role: str = "mixed"):
     """One engine from the CLI's engine flags (every replica of a cluster
@@ -160,7 +180,8 @@ def build_engine(model, params, args, draft_model, draft_params,
         audit_level=args.audit_level,
         audit_interval=args.audit_interval, degrade=args.degrade,
         drain_timeout_s=args.drain_timeout), draft_model=draft_model,
-        draft_params=draft_params, telemetry=telemetry, device=device)
+        draft_params=draft_params, telemetry=telemetry, device=device,
+        mesh=serve_mesh(args, device))
 
 
 def _serve_replicated(engines, args, toks, lens, stop, hup, telemetry):
@@ -297,6 +318,9 @@ def main(argv: list[str] | None = None) -> None:
                     help="restore engine state from a snapshot file and "
                          "resume its waiting queue (engine flags come "
                          "from the snapshot, not the CLI)")
+    ap.add_argument("--mesh", default="",
+                    help="serving mesh 'DxM' (data x model) or 'auto'; "
+                         "empty = single-device engine")
     ap.add_argument("--device", default=None,
                     help="'cpu' to run without a GPU (default: the CUDA "
                          "device; fails when there is none)")
@@ -356,7 +380,8 @@ def main(argv: list[str] | None = None) -> None:
         engine = restore_engine(
             load_snapshot(args.restore), model, params,
             draft_model=draft_model, draft_params=draft_params,
-            telemetry=telemetry, device=device)
+            telemetry=telemetry, device=device,
+            mesh=serve_mesh(args, device))
         print(f"restored snapshot {args.restore}: "
               f"{len(engine.scheduler.waiting)} waiting / "
               f"{len(engine.scheduler.running)} running requests")
@@ -376,6 +401,12 @@ def main(argv: list[str] | None = None) -> None:
             build_engine(model, params, args, draft_model, draft_params,
                          None, device)
             for _ in range(args.replicas - 1)]
+    if engines[0].mesh is not None:
+        mesh = engines[0].mesh
+        print(f"serving mesh: "
+              f"{dict(zip(mesh.axis_names, mesh.devices.shape))}"
+              f" | slots per data shard: "
+              f"{args.max_seqs // engines[0].scheduler.data_shards}")
     if args.spec_k > 0 and not engines[0].spec_active:
         print("speculative decoding gated off for this family "
               "(recurrent state cannot be rewound)")

@@ -33,6 +33,12 @@ class Model:
             return {"params": params, "state": state}
         return tf.init_params(self.cfg, gen)
 
+    def param_axes(self) -> dict:
+        """Logical sharding axes of ``init``'s tree (none for a CNN)."""
+        if self.cfg.family == "cnn":
+            raise ValueError("CNNs are CPU-scale; no sharding axes")
+        return tf.param_axes(self.cfg)
+
     # ----- training -----
     def loss(self, params, batch):
         """(loss, metrics).  A CNN runs its BatchNorm in eval mode here, on
@@ -58,6 +64,9 @@ class Model:
     def init_cache(self, batch: int, max_len: int, device=None) -> dict:
         return tf.init_cache(self.cfg, batch, max_len,
                              resolve_device(device))
+
+    def cache_axes(self, long_context: bool = False) -> dict:
+        return tf.cache_axes(self.cfg, long_context)
 
     def decode_step(self, params, cache, tokens, pos):
         return tf.decode_step(params, self.cfg, cache, tokens, pos)
@@ -88,6 +97,9 @@ class Model:
         not just the last valid one."""
         return tf.paged_verify_step(params, self.cfg, cache, tokens,
                                     positions, slots, block_tables, valid)
+
+    def paged_cache_axes(self, quantized: bool = False) -> dict:
+        return tf.paged_cache_axes(self.cfg, quantized=quantized)
 
     # ----- concrete dummy data (analysis traces, smoke tests) -----
     def dummy_batch(self, batch: int, seq: int, seed: int = 0,

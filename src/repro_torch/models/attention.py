@@ -24,7 +24,8 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (
     paged_attention, paged_prefill_attention, quantize)
-from repro_torch.models.layers import apply_rope, dense_init, rms_norm
+from repro_torch.models.layers import (
+    dense_init, rms_norm, rope_sin_cos, rotate)
 
 NEG_INF = -1e30
 
@@ -45,6 +46,18 @@ def attn_init(gen: torch.Generator, cfg) -> dict:
     return p
 
 
+# logical sharding axes of the attention parameters (the reference's table;
+# ``distributed.sharding`` maps them to mesh axes)
+ATTN_AXES = {
+    "wq": ("fsdp", "heads", "head_dim"),
+    "wk": ("fsdp", "kv_heads", "head_dim"),
+    "wv": ("fsdp", "kv_heads", "head_dim"),
+    "wo": ("heads", "head_dim", "fsdp"),
+    "q_norm": ("head_dim",),
+    "k_norm": ("head_dim",),
+}
+
+
 def _build_mask(mode: str, q_pos: torch.Tensor, kv_pos: torch.Tensor,
                 window: int, prefix_len: int) -> torch.Tensor:
     """Boolean (…, Sq, Skv) mask; True = attend."""
@@ -62,8 +75,10 @@ def _build_mask(mode: str, q_pos: torch.Tensor, kv_pos: torch.Tensor,
     raise ValueError(mode)
 
 
-def _qkv(params, cfg, x, positions):
-    """Project + rope + qk-norm.  Returns q (B,S,KH,G,hd), k, v (B,S,KH,hd)."""
+def _qkv(params, cfg, x, positions, memo: dict | None = None):
+    """Project + rope + qk-norm.  Returns q (B,S,KH,G,hd), k, v (B,S,KH,hd).
+    ``memo`` (a paged step's, shared by its layers) keeps the RoPE tables,
+    which depend on the positions only, from the first layer on."""
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     G = H // KH
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"])
@@ -72,8 +87,13 @@ def _qkv(params, cfg, x, positions):
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    rope = None if memo is None else memo.get("rope")
+    if rope is None:
+        rope = rope_sin_cos(q, positions, cfg.rope_theta)
+        if memo is not None:
+            memo["rope"] = rope
+    q = rotate(q, *rope)
+    k = rotate(k, *rope)
     q = q.reshape(q.shape[:2] + (KH, G, hd))
     return q, k, v
 
@@ -178,17 +198,29 @@ def _scatter_kv(kv: dict, k_new, v_new, block_tables, positions,
     never share a cell; idle and padded rows all hit (block 0, offset 0),
     where the order of duplicate writes does not matter because every read
     of that cell is masked."""
-    k_pool, v_pool = kv["k"], kv["v"]
-    bs, NB = k_pool.shape[1], block_tables.shape[1]
+    return scatter_kv_at(kv, k_new, v_new, kv_write_index(
+        block_tables, positions, kv["k"].shape[1], inchunk))
+
+
+def kv_write_index(block_tables, positions, block_size: int, inchunk=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(block, offset) of every token's K/V write (``_scatter_kv``'s rule):
+    the same for every layer of a step."""
+    NB = block_tables.shape[1]
     positions = positions.long()
-    blk_idx = (positions // bs).clamp(0, NB - 1)
+    blk_idx = (positions // block_size).clamp(0, NB - 1)
     blk = torch.gather(block_tables.long(), 1, blk_idx)
-    off = positions % bs
+    off = positions % block_size
     if inchunk is not None:
         zero = torch.zeros_like(blk)
         blk = torch.where(inchunk, blk, zero)
         off = torch.where(inchunk, off, zero)
-    idx = (blk, off)
+    return blk, off
+
+
+def scatter_kv_at(kv: dict, k_new, v_new, idx) -> dict:
+    """``_scatter_kv`` at a ``kv_write_index``."""
+    k_pool, v_pool = kv["k"], kv["v"]
     if "k_scale" in kv:
         qk, sk = quantize(k_new, k_pool.dtype)
         qv, sv = quantize(v_new, v_pool.dtype)
@@ -212,10 +244,23 @@ def _put(pool: torch.Tensor, idx, vals: torch.Tensor) -> None:
         pool.index_put_(idx, vals)
 
 
+def _write_index(memo: dict | None, block_tables, positions, block_size,
+                 inchunk=None):
+    """``kv_write_index``, kept in a paged step's ``memo`` from its first
+    layer on (every layer writes at the same coordinates)."""
+    widx = None if memo is None else memo.get("widx")
+    if widx is None:
+        widx = kv_write_index(block_tables, positions, block_size, inchunk)
+        if memo is not None:
+            memo["widx"] = widx
+    return widx
+
+
 def attention_paged_decode(params: dict, cfg, x: torch.Tensor,
                            positions: torch.Tensor, kv: dict,
                            block_tables: torch.Tensor,
-                           window=0) -> tuple[torch.Tensor, dict]:
+                           window=0, memo: dict | None = None
+                           ) -> tuple[torch.Tensor, dict]:
     """One-token decode over a paged KV pool (continuous batching).
 
     x (B,1,d); positions (B,) int32 — per-sequence write index; ``kv`` is one
@@ -224,11 +269,14 @@ def attention_paged_decode(params: dict, cfg, x: torch.Tensor,
     logical to pool blocks.  window: python int for static masking (kernel)
     or a (B,) tensor for per-sequence dynamic windows (plain version).
 
+    ``memo``: a dict the step's layers share (RoPE tables, write index).
+
     Returns (out (B,1,d), the same kv dict, written in place).
     """
     B = x.shape[0]
-    q, k_new, v_new = _qkv(params, cfg, x, positions[:, None])
-    kv = _scatter_kv(kv, k_new, v_new, block_tables, positions[:, None])
+    q, k_new, v_new = _qkv(params, cfg, x, positions[:, None], memo)
+    kv = scatter_kv_at(kv, k_new, v_new, _write_index(
+        memo, block_tables, positions[:, None], kv["k"].shape[1]))
     qf = q.reshape(B, q.shape[2] * q.shape[3], q.shape[4])
     o = paged_attention(qf, kv["k"], kv["v"], block_tables,
                         (positions + 1).to(torch.int32),
@@ -243,7 +291,8 @@ def attention_paged_decode(params: dict, cfg, x: torch.Tensor,
 def attention_paged_prefill(params: dict, cfg, x: torch.Tensor,
                             positions: torch.Tensor, kv: dict,
                             block_tables: torch.Tensor,
-                            valid: torch.Tensor, window=0
+                            valid: torch.Tensor, window=0,
+                            memo: dict | None = None
                             ) -> tuple[torch.Tensor, dict]:
     """Chunked-prefill attention over the paged KV pool.
 
@@ -254,12 +303,17 @@ def attention_paged_prefill(params: dict, cfg, x: torch.Tensor,
     reserved null block 0), then the chunk's queries attend causally over
     the *pool* history — which includes any prefix blocks aliased in by
     prefix caching.  The per-row absolute-position masking makes the same
-    path serve speculative verify chunks.  Returns (out (B, C, d), kv).
+    path serve speculative verify chunks.  ``memo``: a dict the step's
+    layers share (RoPE tables, write index).  Returns (out (B, C, d), kv).
     """
     B, C, _ = x.shape
-    q, k_new, v_new = _qkv(params, cfg, x, positions)
-    inchunk = torch.arange(C, device=x.device)[None, :] < valid[:, None]
-    kv = _scatter_kv(kv, k_new, v_new, block_tables, positions, inchunk)
+    q, k_new, v_new = _qkv(params, cfg, x, positions, memo)
+    widx = None if memo is None else memo.get("widx")
+    if widx is None:
+        inchunk = torch.arange(C, device=x.device)[None, :] < valid[:, None]
+        widx = _write_index(memo, block_tables, positions, kv["k"].shape[1],
+                            inchunk)
+    kv = scatter_kv_at(kv, k_new, v_new, widx)
     qf = q.reshape(B, C, q.shape[2] * q.shape[3], q.shape[4])
     starts = positions[:, 0].to(torch.int32).contiguous()
     o = paged_prefill_attention(

@@ -75,6 +75,15 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
                ) -> torch.Tensor:
     """x: (..., seq, heads, head_dim); positions: (..., seq) int.
     Half-split rotation computed in f32."""
+    return rotate(x, *rope_sin_cos(x, positions, theta))
+
+
+def rope_sin_cos(x: torch.Tensor, positions: torch.Tensor, theta: float
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rotation ``apply_rope`` gives ``x`` (its head_dim, device and
+    kind) at ``positions``: (sin, cos), each (..., seq, 1, hd/2) f32.
+    They depend on the positions only, so a step may take them once for
+    all its layers."""
     head_dim = x.shape[-1]
     freqs = torch.from_numpy(rope_freqs(head_dim, theta))
     if x.is_cuda and type(x) is torch.Tensor:
@@ -85,8 +94,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     else:
         freqs = freqs.to(x.device)
     angles = positions[..., None].float() * freqs          # (..., seq, hd/2)
-    sin = torch.sin(angles)[..., None, :]                  # broadcast heads
-    cos = torch.cos(angles)[..., None, :]
+    return (torch.sin(angles)[..., None, :],               # broadcast heads
+            torch.cos(angles)[..., None, :])
+
+
+def rotate(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
+           ) -> torch.Tensor:
+    """``apply_rope``'s rotation by ``rope_sin_cos``'s tables."""
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -102,6 +116,13 @@ def swiglu_init(gen: torch.Generator, d_model: int, d_ff: int, dtype) -> dict:
         "w_up": dense_init(gen, (d_model, d_ff), dtype),
         "w_down": dense_init(gen, (d_ff, d_model), dtype, fan_in=d_ff),
     }
+
+
+SWIGLU_AXES = {
+    "w_gate": ("fsdp", "mlp"),
+    "w_up": ("fsdp", "mlp"),
+    "w_down": ("mlp", "fsdp"),
+}
 
 
 def swiglu(params: dict, x: torch.Tensor) -> torch.Tensor:

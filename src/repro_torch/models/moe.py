@@ -79,6 +79,20 @@ def moe_init(gen: torch.Generator, cfg) -> dict:
     return p
 
 
+MOE_AXES = {
+    "router": ("fsdp", "expert"),
+    "w_gate": ("expert", "fsdp", "expert_mlp"),
+    "w_up": ("expert", "fsdp", "expert_mlp"),
+    "w_down": ("expert", "expert_mlp", "fsdp"),
+    "shared": {
+        "w_gate": ("fsdp", "mlp"),
+        "w_up": ("fsdp", "mlp"),
+        "w_down": ("mlp", "fsdp"),
+        "gate": ("fsdp", None),
+    },
+}
+
+
 def _capacity(cfg, n_tokens: int) -> int:
     cap = int(cfg.capacity_factor * n_tokens * cfg.top_k / cfg.n_experts)
     return max(8, -(-cap // 8) * 8)   # round up to 8

@@ -16,9 +16,10 @@ hand-written kernel K3 (``kernels/ssd_scan``) on CUDA tensors when
 ``cfg.use_kernels``; otherwise, and on the CPU, through ``ssd_reference``
 below, the plain version.  Chunked prefill (``ssm_prefill``) needs an
 initial state in and the final state out, which the kernel does not take,
-so it runs ``ssd_reference`` on every device, as the reference does.  The
-logical sharding axes (the reference's ``SSM_AXES``) wait for the sharding
-slice (ROADMAP.md Queue 1 item 17).
+so it runs ``ssd_reference`` on every device, as the reference does.
+``SSM_AXES`` holds the reference's logical sharding axes of these
+parameters (``distributed.sharding`` maps them to mesh axes); serving the
+ssm family over a mesh larger than 1x1 is still to be ported.
 """
 from __future__ import annotations
 
@@ -53,6 +54,21 @@ def ssm_init(gen: torch.Generator, cfg) -> dict:
         "norm": torch.ones((di,), dtype=dt, device=dev),
         "w_out": dense_init(gen, (nh, hp, d), dt, fan_in=di),
     }
+
+
+SSM_AXES = {
+    "w_z": ("fsdp", "ssm_heads", "head_dim"),
+    "w_x": ("fsdp", "ssm_heads", "head_dim"),
+    "w_B": ("fsdp", "ssm_state"),
+    "w_C": ("fsdp", "ssm_state"),
+    "w_dt": ("fsdp", "ssm_heads"),
+    "dt_bias": ("ssm_heads",),
+    "A_log": ("ssm_heads",),
+    "D": ("ssm_heads",),
+    "conv_w": (None, None),
+    "norm": (None,),
+    "w_out": ("ssm_heads", "head_dim", "fsdp"),
+}
 
 
 def _conv_valid(win: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -44,8 +44,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    cross_entropy, dense_init, dtype_of, embed_init, rms_norm, swiglu,
-    swiglu_init)
+    SWIGLU_AXES, cross_entropy, dense_init, dtype_of, embed_init, rms_norm,
+    swiglu, swiglu_init)
 
 PORTED = ("dense", "moe", "ssm", "hybrid", "cnn", "audio", "vlm")
 
@@ -107,6 +107,29 @@ def layer_init(gen: torch.Generator, cfg: ArchConfig) -> dict:
     return p
 
 
+def layer_axes(cfg: ArchConfig) -> dict:
+    """Logical sharding axes of one layer's parameters (the tree
+    ``layer_init`` builds)."""
+    p: dict[str, Any] = {"ln1": (None,)}
+    if cfg.family != "ssm":
+        a = dict(attn.ATTN_AXES)
+        if not cfg.qk_norm:
+            a.pop("q_norm"), a.pop("k_norm")
+        p["attn"] = a
+    if cfg.family == "ssm" or cfg.hybrid:
+        p["ssm"] = dict(ssm_mod.SSM_AXES)
+    if cfg.n_experts:
+        p["ln2"] = (None,)
+        m = dict(moe_mod.MOE_AXES)
+        if not cfg.n_shared_experts:
+            m.pop("shared")
+        p["moe"] = m
+    elif cfg.d_ff:
+        p["ln2"] = (None,)
+        p["mlp"] = dict(SWIGLU_AXES)
+    return p
+
+
 def _stack(trees: list[dict]) -> dict:
     first = trees[0]
     if isinstance(first, dict):
@@ -159,6 +182,24 @@ def init_params(cfg: ArchConfig, gen: torch.Generator) -> dict:
     if cfg.is_encoder or not cfg.tie_embeddings:
         params["head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
     return params
+
+
+def param_axes(cfg: ArchConfig) -> dict:
+    """Logical sharding axes of the tree ``init_params`` builds: every
+    per-layer leaf gains the leading ``"layers"`` axis."""
+    axes: dict[str, Any] = {}
+    if cfg.family == "audio":
+        axes["frame_proj"] = (None, "fsdp")
+    else:
+        axes["tok_embed"] = ("vocab", "fsdp")
+    if cfg.family == "vlm":
+        axes["vision_proj"] = (None, "fsdp")
+    axes["layers"] = _tree_map(lambda t: ("layers",) + tuple(t),
+                               layer_axes(cfg))
+    axes["final_norm"] = (None,)
+    if cfg.is_encoder or not cfg.tie_embeddings:
+        axes["head"] = ("fsdp", "vocab")
+    return axes
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +405,21 @@ def _keep_rows(rows: torch.Tensor | None, new, old: torch.Tensor
     return torch.where(rows.reshape((-1,) + (1,) * (old.ndim - 1)), new, old)
 
 
+def cache_axes(cfg: ArchConfig, long_context: bool = False) -> dict:
+    """Logical axes of the contiguous cache tree.  "kv_seq" defaults to
+    replicated; rules override it for long-context (data) or kv-replicated
+    (model)."""
+    del long_context
+    axes: dict[str, Any] = {}
+    if cfg.family != "ssm":
+        axes["k"] = ("layers", "batch", "kv_seq", "kv_heads", None)
+        axes["v"] = ("layers", "batch", "kv_seq", "kv_heads", None)
+    if cfg.family == "ssm" or cfg.hybrid:
+        axes["conv"] = ("layers", "batch", None, None)
+        axes["state"] = ("layers", "batch", "ssm_heads", None, None)
+    return axes
+
+
 def decode_step(params: dict, cfg: ArchConfig, cache: dict,
                 tokens: torch.Tensor, pos: int) -> tuple[torch.Tensor, dict]:
     """One decode step.  tokens (B,) int, pos python int.
@@ -441,6 +497,26 @@ def init_paged_cache(cfg: ArchConfig, num_blocks: int, block_size: int,
     return cache
 
 
+def paged_cache_axes(cfg: ArchConfig, quantized: bool = False) -> dict:
+    """Logical axes of the paged-pool cache tree.  The block-address axes
+    (``serve_blocks``, block offset) stay replicated — any slot's blocks
+    must be readable from every data shard; KV shards over kv_heads (tensor
+    parallel) and the per-slot SSM state over the slot (``serve_batch``)
+    axis.  ``quantized`` adds the scale-pool leaves, which shard exactly
+    like their KV pools minus the head_dim axis."""
+    axes: dict[str, Any] = {}
+    if cfg.family != "ssm":
+        axes["k"] = ("layers", "serve_blocks", None, "kv_heads", None)
+        axes["v"] = ("layers", "serve_blocks", None, "kv_heads", None)
+        if quantized:
+            axes["k_scale"] = ("layers", "serve_blocks", None, "kv_heads")
+            axes["v_scale"] = ("layers", "serve_blocks", None, "kv_heads")
+    if cfg.family == "ssm" or cfg.hybrid:
+        axes["conv"] = ("layers", "serve_batch", None, None)
+        axes["state"] = ("layers", "serve_batch", "ssm_heads", None, None)
+    return axes
+
+
 def paged_decode_step(params: dict, cfg: ArchConfig, cache: dict,
                       tokens: torch.Tensor, positions: torch.Tensor,
                       block_tables: torch.Tensor,
@@ -463,10 +539,12 @@ def paged_decode_step(params: dict, cfg: ArchConfig, cache: dict,
     # from a previous occupant (or idle-step garbage) and is zeroed before
     # use — KV needs no such reset, reads are length-masked
     fresh = positions == 0
+    memo: dict = {}           # the layers' shared RoPE tables, write index
 
     def attn_fn(ap, hn, lc, window):
         a_out, _ = attn.attention_paged_decode(
-            ap, cfg, hn, positions, lc, block_tables, window=window)
+            ap, cfg, hn, positions, lc, block_tables, window=window,
+            memo=memo)
         return a_out
 
     def ssm_fn(sp, hn, lc):
@@ -497,10 +575,12 @@ def _paged_chunk_forward(params: dict, cfg: ArchConfig, cache: dict,
     # rows riding the fixed-shape chunk batch with no tokens this step
     # (valid == 0: idle or decode-phase slots) keep their recurrent state
     fed = valid > 0
+    memo: dict = {}           # the layers' shared RoPE tables, write index
 
     def attn_fn(ap, hn, lc, window):
         a_out, _ = attn.attention_paged_prefill(
-            ap, cfg, hn, positions, lc, block_tables, valid, window=window)
+            ap, cfg, hn, positions, lc, block_tables, valid, window=window,
+            memo=memo)
         return a_out
 
     rows = slots.long()

@@ -1,5 +1,6 @@
 """Continuous-batching inference engine over the paged KV cache — the
-port of the reference's ``serve/engine.py`` (single device).
+port of the reference's ``serve/engine.py``, on one device or over a
+(data, model) serving mesh.
 
 Two fixed-shape device steps serve every in-flight request:
 
@@ -126,13 +127,48 @@ the pool) adopts as waiting-with-recompute, byte-identical at temperature
 dispatched step unread (a dead replica's in-flight samples are lost).
 ``ServeConfig.role`` splits prefill from decode: a ``prefill`` engine plans
 prefill chunks only and parks finished prompts for the cluster to migrate
-(``decode_ready``).  Meshes (and ``migrate_on_alias``, which only they
-read) are a later slice of the port.
+(``decode_ready``).
+
+Sharded serving (``Engine(..., mesh=launch.mesh.Mesh)``): the same engine
+over a (data, model) mesh — request slots data-parallel, pools and head-
+sharded parameters tensor-parallel over ``model``, all host bookkeeping
+(allocator, tables, prefix index, scheduler) global and single-sourced.
+The mesh is logical: one host loop drives its shards in mesh order, each a
+torch device (possibly all the same one), and the shards exchange data
+only through the explicit collectives of ``distributed.collectives``.
+Pools are always one tensor per shard, never shared storage; replicated
+parameters on one device share theirs.  ``mesh=None`` is the one-device
+engine.  Modes (the reference's rule):
+
+  - ``"dp"`` — model axis 1, more than one data shard, attention family:
+    one device program per data shard over its own slots' rows (decode
+    rows and prefill chunks alike, by ``PagedCache.shard_of``) on its own
+    pool replica, which is authoritative for its own slots' blocks only;
+    the prefix index is home-shard gated (``PagedCache(data_shards=)``),
+    and a cross-shard alias either moves its blocks between replicas
+    before the step (``migrate_on_alias``; ``_apply_moves``, counted in
+    ``shard_moves``) or is refused (``alias_refusals``).  COW copies run
+    on every replica.  Sampling at temperature > 0 draws from one
+    generator per data shard, seeded from the seed and the shard index.
+  - ``"gspmd"`` — any model axis above 1, or a slot count the data axis
+    does not divide, or a 1x1 mesh: one program over the whole mesh,
+    tensor parallel (``distributed.tensor_parallel``), with a global
+    ``PagedCache`` whose data replicas stay byte-equal (each layer's KV
+    rows are broadcast between them); the logits are gathered to the
+    mesh's first device and sampled there as on one device.
+
+The sampled tokens of every program join on the mesh's first device, so a
+step still has one upload per program call and ONE fetch.  The paged-
+attention kernel is launched once per shard (through the shard wrap in
+gspmd mode).  The ssm, hybrid and moe families serve on a 1x1 mesh only
+(its one shard runs the unsharded step); block hand-off needs ``mesh=None``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import math
 import time
 from typing import Any, Iterable
 
@@ -141,7 +177,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels.paged_attention import CACHE_DTYPES
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed import tensor_parallel as tp
+from repro_torch.distributed.sharding import (
+    local_tree, place_tree, tree_specs, use_rules)
+from repro_torch.kernels.paged_attention import CACHE_DTYPES, is_quantized
 from repro_torch.obs import DEFAULT_TIME_BUCKETS, NULL_CTX, Telemetry
 from repro_torch.serve.faults import CrashError, FaultError, FaultInjector
 from repro_torch.serve.kv_cache import OutOfBlocks, PagedCache
@@ -163,7 +203,10 @@ _RUN_COUNTERS = ("steps", "decode_tokens", "prefill_tokens",
                  "audit_violations", "callback_errors",
                  # cluster failover / block migration: blocks adopted with
                  # their bytes
-                 "migrated_blocks")
+                 "migrated_blocks",
+                 # intra-mesh cross-shard aliasing: refused cross-shard
+                 # prefix matches vs replica block copies made to allow them
+                 "alias_refusals", "shard_moves")
 
 # pool entries a copy-on-write block copy moves and a hand-off carries: KV
 # plus the per-(token, head) scale pools sharing block addressing
@@ -172,9 +215,8 @@ _POOL_KEYS = ("k", "v", "k_scale", "v_scale")
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
-    """The reference's ``ServeConfig`` on one device.  ``donate_pools`` has
-    no counterpart (the port's pools are updated in place, never donated);
-    ``migrate_on_alias`` belongs to the mesh slice of the port."""
+    """The reference's ``ServeConfig``.  ``donate_pools`` has no
+    counterpart (the port's pools are updated in place, never donated)."""
     max_seqs: int = 8                 # decode slots = max batch per step
     block_size: int = 16              # tokens per KV block
     max_len: int = 512                # per-sequence token capacity
@@ -235,6 +277,10 @@ class ServeConfig:
                                       # "decode" plans normally (it can
                                       # recompute-prefill on fallback) —
                                       # the Cluster keeps new prompts off it
+    migrate_on_alias: bool = True     # dp mesh mode: move blocks between
+                                      # shard replicas to serve cross-shard
+                                      # prefix aliases (False = refuse them,
+                                      # counted in alias_refusals)
 
     @property
     def blocks_per_seq(self) -> int:
@@ -350,6 +396,24 @@ class _Inflight:
     pins: list[torch.Tensor] = dataclasses.field(default_factory=list)
 
 
+@dataclasses.dataclass
+class _Program:
+    """One device program of an engine step: all slots on one device (no
+    mesh, or the one shard of a 1x1 mesh whose family is not partitioned),
+    one data shard's slots on its pool replica (dp), or all slots over the
+    whole mesh (gspmd: ``params`` / ``cache`` are trees of ``Sharded`` and
+    the steps those of ``distributed.tensor_parallel``).  ``rows`` are the
+    slots it serves, ``gen`` its sampling generator."""
+    rows: slice
+    device: torch.device
+    params: Any
+    cache: dict
+    draft_params: Any = None
+    draft_cache: dict | None = None
+    gen: torch.Generator | None = None
+    sharded: bool = False
+
+
 def _first_leaf(tree) -> torch.Tensor:
     while isinstance(tree, (dict, list)):
         tree = next(iter(tree.values())) if isinstance(tree, dict) \
@@ -366,12 +430,15 @@ class Engine:
     def __init__(self, model, params, cfg: ServeConfig | None = None,
                  draft_model=None, draft_params=None,
                  telemetry: Telemetry | None = None, device=None,
-                 faults: FaultInjector | None = None):
+                 faults: FaultInjector | None = None, mesh=None):
         if not model.cfg.has_decode:
             raise ValueError(f"{model.cfg.name} has no decode path")
         if model.cfg.family == "vlm":
             raise ValueError("vlm serving needs patch prefill (not supported)")
-        self.device = resolve_device(device)
+        # a mesh's first device is the engine's: uploads land there, the
+        # sampled tokens join there for the step's one fetch
+        self.device = mesh.devices.flat[0] if mesh is not None else \
+            resolve_device(device)
         for tree in (params, draft_params):
             leaf = None if tree is None else _first_leaf(tree)
             if leaf is not None and leaf.device.type != self.device.type:
@@ -401,12 +468,11 @@ class Engine:
         if self.cfg.role not in ("mixed", "prefill", "decode"):
             raise ValueError(f"role {self.cfg.role!r} "
                              f"not in ('mixed', 'prefill', 'decode')")
-        self.cache = model.init_paged_cache(
-            num_blocks=self.cfg.pool_blocks(),
-            block_size=self.cfg.block_size,
-            max_seqs=self.cfg.max_seqs,
-            dtype=self.cfg.cache_dtype or None,
-            device=self.device)
+        self._mesh_setup(mesh)
+        self.cache = self._place_pools(model, self.cfg.cache_dtype)
+        if mesh is not None:
+            self.params = place_tree(params, mesh, tree_specs(
+                self.rules, model.param_axes(), params))
         # prefix caching needs the cached blocks to fully determine the
         # model state they stand for; recurrent SSM/conv state is per-slot
         # and not reconstructable from aliased KV blocks
@@ -422,13 +488,130 @@ class Engine:
         if self.spec_active:
             if draft_model.cfg.vocab_size != model.cfg.vocab_size:
                 raise ValueError("draft/target vocabularies differ")
-            self.draft_cache = draft_model.init_paged_cache(
-                num_blocks=self.cfg.pool_blocks(),
-                block_size=self.cfg.block_size,
-                max_seqs=self.cfg.max_seqs,
-                dtype=self.cfg.draft_cache_dtype or None,
-                device=self.device)
+            # the draft's pool and parameters are placed as the target's
+            self.draft_cache = self._place_pools(draft_model,
+                                                 self.cfg.draft_cache_dtype)
+            if mesh is not None:
+                self.draft_params = place_tree(draft_params, mesh, tree_specs(
+                    self.rules, draft_model.param_axes(), draft_params))
+        self._progs = self._programs()
         self.reset()
+
+    def _mesh_setup(self, mesh) -> None:
+        """The reference's mode rule: "dp" for a pure data-parallel mesh of
+        an attention family whose slots divide the data axis, "gspmd" for
+        any other mesh, "none" without one."""
+        self.mesh = mesh
+        self.rules = None
+        self._data_shards = 1
+        self.shard_mode = "none"
+        if mesh is None:
+            return
+        cfg = self.model.cfg
+        if mesh.size > 1 and (self._recurrent or cfg.n_experts):
+            raise NotImplementedError(
+                f"{cfg.name}: serving the {cfg.family} family over a mesh "
+                f"larger than 1x1 is not ported yet (ROADMAP.md Queue 1: "
+                f"mesh serving of the ssm, hybrid and moe families)")
+        from repro_torch.launch.mesh import serve_rules
+        self.rules = serve_rules(cfg, mesh)
+        bspec = self.rules.spec(("serve_batch",),
+                                shape=(self.cfg.max_seqs,))[0]
+        self._data_shards = math.prod(mesh.shape[a] for a in bspec)
+        self.shard_mode = "gspmd"
+        if self._data_shards > 1 and mesh.shape["model"] == 1 \
+                and not self._recurrent:
+            self.shard_mode = "dp"
+
+    def _place_pools(self, model, dtype: str) -> dict:
+        """A model's block pools: on the engine's device, or one tensor per
+        shard of the mesh (placed by ``paged_cache_axes`` and the serve
+        rules, each shard owning its bytes)."""
+        pools = model.init_paged_cache(
+            num_blocks=self.cfg.pool_blocks(),
+            block_size=self.cfg.block_size,
+            max_seqs=self.cfg.max_seqs, dtype=dtype or None,
+            device=self.device)
+        if self.mesh is None:
+            return pools
+        specs = tree_specs(self.rules, model.paged_cache_axes(
+            quantized=is_quantized(dtype)), pools)
+        return place_tree(pools, self.mesh, specs, copy=True)
+
+    def _programs(self) -> list[_Program]:
+        """The step's device programs (``_Program``): one per data shard in
+        dp mode, else one."""
+        spec = self.spec_active
+        if self.shard_mode == "gspmd" and tp.supports(self.model.cfg):
+            return [_Program(slice(None), self.device, self.params,
+                             self.cache, self.draft_params,
+                             self.draft_cache if spec else None,
+                             sharded=True)]
+        if self.mesh is None:
+            return [_Program(slice(None), self.device, self.params,
+                             self.cache, self.draft_params,
+                             self.draft_cache if spec else None)]
+        d = self._data_shards if self.shard_mode == "dp" else 1
+        n = self.cfg.max_seqs // d
+        return [_Program(
+            slice(k * n, (k + 1) * n) if d > 1 else slice(None),
+            self.mesh.devices.flat[k], local_tree(self.params, k),
+            local_tree(self.cache, k),
+            local_tree(self.draft_params, k) if spec else None,
+            local_tree(self.draft_cache, k) if spec else None)
+            for k in range(d)]
+
+    def _mesh_ctx(self, prog: _Program):
+        """The serve rules and the mesh around a gspmd program's calls
+        (the paged-attention shard wrap reads them); nothing otherwise."""
+        if not prog.sharded:
+            return contextlib.nullcontext()
+        return use_rules(self.rules, mesh=self.mesh)
+
+    def _step_fn(self, prog: _Program, which: str, draft: bool = False):
+        """A program's model step ``which`` (paged_decode_step, ...)."""
+        model = self.draft_model if draft else self.model
+        if prog.sharded:
+            fn = getattr(tp, which)
+            return lambda params, *a: fn(params, model.cfg, *a)
+        return getattr(model, which)
+
+    def _pool_shards(self, pools: dict) -> list[dict]:
+        """Every shard's pool tensors of a pool tree (one dict without a
+        mesh)."""
+        if self.mesh is None:
+            return [pools]
+        return [local_tree(pools, k) for k in range(self.mesh.size)]
+
+    def replica_audit(self) -> dict:
+        """The mesh pools' audit: every shard's pool tensors are distinct
+        storage, and (gspmd mode) the data replicas of each model shard's
+        pools are byte-equal outside the null block 0 (idle rows' writes
+        land there in any order, and nothing reads it).  Raises
+        AssertionError; returns the counts it checked."""
+        if self.mesh is None:
+            return {"shards": 1, "replica_pairs": 0}
+        trees = [self.cache] + ([self.draft_cache] if self.spec_active
+                                else [])
+        ptrs, pairs = set(), 0
+        m = self.mesh.shape["model"]
+        for tree in trees:
+            shards = self._pool_shards(tree)
+            for pools in shards:
+                for t in pools.values():
+                    assert t.data_ptr() not in ptrs, "pool shards share " \
+                        "storage"
+                    ptrs.add(t.data_ptr())
+            if self.shard_mode != "gspmd":
+                continue
+            for k in range(m, len(shards)):
+                for n, t in shards[k].items():
+                    ref = shards[k % m][n]
+                    assert torch.equal(t[:, 1:].view(torch.uint8), ref[
+                        :, 1:].view(torch.uint8).to(t.device)), \
+                        f"data replica {k // m} of pool {n} differs"
+                    pairs += 1
+        return {"shards": len(ptrs), "replica_pairs": pairs}
 
     @property
     def _recurrent(self) -> bool:
@@ -437,11 +620,12 @@ class Engine:
     @property
     def can_handoff_blocks(self) -> bool:
         """Whether a running sequence moves to another engine as its KV
-        blocks: not for recurrent families, whose SSM/conv state is
-        per-slot, not per-block, so it cannot ride the block transport.
-        Gated-off engines still hand requests off — as waiting-with-
-        recompute."""
-        return not self._recurrent
+        blocks: only on a one-device engine (a dp replica holds a block's
+        bytes only on its home shard), and not for recurrent families,
+        whose SSM/conv state is per-slot, not per-block, so it cannot ride
+        the block transport.  Gated-off engines still hand requests off —
+        as waiting-with-recompute."""
+        return self.mesh is None and not self._recurrent
 
     @property
     def _steps(self) -> int:
@@ -450,15 +634,28 @@ class Engine:
     def reset(self) -> None:
         """Clear all request/allocator state; keep params and pools (stale
         pool contents are dead: reads are gated by per-slot positions)."""
+        # dp pool replicas restrict prefix aliasing to a block's home shard
+        # and balance slot placement; gspmd pools are globally consistent,
+        # so they keep the global index and placement (data_shards=1)
+        dp = self.shard_mode == "dp"
         self.cache_host = PagedCache(
             max_seqs=self.cfg.max_seqs,
             num_blocks=self.cfg.pool_blocks(),
             block_size=self.cfg.block_size,
             max_blocks_per_seq=self.cfg.blocks_per_seq,
-            prefix_caching=self._prefix_ok)
+            prefix_caching=self._prefix_ok,
+            data_shards=self._data_shards if dp else 1,
+            migrate_on_alias=dp and self.cfg.migrate_on_alias)
         self.scheduler = FCFSScheduler(self.cache_host)
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(self.cfg.seed)
+        # one generator per program; a dp shard's is seeded from the seed
+        # and its shard index (the reference folds the shard index into
+        # its key), the one-program engine's from the seed alone
+        for k, prog in enumerate(self._progs):
+            prog.gen = torch.Generator(device=prog.device)
+            prog.gen.manual_seed(self.cfg.seed if len(self._progs) == 1
+                                 else int(np.random.SeedSequence(
+                                     [self.cfg.seed, k]).generate_state(1)[0]))
+        self._gen = self._progs[0].gen
         self._rid = 0
         self._c = {k: self.obs.registry.counter("serve/" + k)
                    for k in _RUN_COUNTERS}
@@ -491,20 +688,22 @@ class Engine:
 
     # ----- device steps -----
     def _sample(self, logits: torch.Tensor, temps: np.ndarray,
-                t_dev: torch.Tensor | None = None) -> torch.Tensor:
+                t_dev: torch.Tensor | None = None,
+                gen: torch.Generator | None = None) -> torch.Tensor:
         """Greedy rows take the argmax; rows with temperature > 0 draw from
-        ``softmax(logits / T)`` with the engine's generator.  ``temps`` is
-        the host copy, so an all-greedy batch draws nothing; ``t_dev`` is
-        its device copy, which the callers send in their call's one
-        upload."""
+        ``softmax(logits / T)`` with ``gen`` (the program's generator;
+        default the first program's).  ``temps`` is the host copy, so an
+        all-greedy batch draws nothing; ``t_dev`` is its device copy, which
+        the callers send in their call's one upload."""
         greedy = logits.argmax(dim=-1)
         if not (temps > 0).any():
             return greedy.to(torch.int32)
-        t = self._upload(temps.view(np.int32))[0].view(torch.float32) \
-            if t_dev is None else t_dev
+        t = self._upload(temps.view(np.int32), device=logits.device)[0] \
+            .view(torch.float32) if t_dev is None else t_dev
         probs = torch.softmax(logits.float() / t.clamp(min=1e-6)[:, None],
                               dim=-1)
-        sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        sampled = torch.multinomial(probs, 1, generator=gen or self._gen
+                                    )[:, 0]
         return torch.where(t > 0, sampled, greedy).to(torch.int32)
 
     @staticmethod
@@ -522,7 +721,7 @@ class Engine:
         return torch.where(t[..., None] > 0, soft, hard)
 
     def _draft_impl(self, forced, known_len, start_pos, tables, temps,
-                    t_dev):
+                    t_dev, prog: _Program | None = None):
         """K draft-model decode steps (eager; the reference fuses them into
         one jitted call).
 
@@ -534,17 +733,19 @@ class Engine:
         the K candidate tokens (right-aligned from the step that consumed
         the last known token; positions past ``K - known_len + 1`` are
         padding the verify mask discards) and their proposal distributions
-        q (B, K, V)."""
+        q (B, K, V).  ``prog``: the program whose rows these are (default
+        the first)."""
+        prog = prog or self._progs[0]
         B, K = forced.shape
         sampled = bool((temps > 0).any())
         prev = forced[:, 0]
         cands, qs = [], []
+        step = self._step_fn(prog, "paged_decode_step", draft=True)
         for i in range(K):
             tok = torch.where(known_len > i, forced[:, i], prev)
-            logits, self.draft_cache = self.draft_model.paged_decode_step(
-                self.draft_params, self.draft_cache, tok, start_pos + i,
-                tables)
-            nxt = self._sample(logits, temps, t_dev)
+            logits, _ = step(prog.draft_params, prog.draft_cache, tok,
+                             start_pos + i, tables)
+            nxt = self._sample(logits, temps, t_dev, prog.gen)
             cands.append(nxt)
             qs.append(self._dist(logits, t_dev if sampled else None))
             prev = nxt
@@ -558,7 +759,8 @@ class Engine:
         return cand, q
 
     def _verify_impl(self, base_tok, cand, qprobs, positions0, slots,
-                     block_tables, valid, ncand, temps, t_dev):
+                     block_tables, valid, ncand, temps, t_dev,
+                     prog: _Program | None = None):
         """One multi-token target pass over ``[base token, drafts]``, then
         exact speculative acceptance.
 
@@ -579,14 +781,16 @@ class Engine:
         the verify batch: they emit row 0's target sample.
 
         Returns (out_tokens (B, K): accepted drafts then the replacement or
-        plain-decode sample, n_acc (B,)), both int32."""
+        plain-decode sample, n_acc (B,)), both int32.  ``prog``: the program
+        whose rows these are (default the first)."""
+        prog = prog or self._progs[0]
         B, K = cand.shape
         dev = cand.device
         tokens = torch.cat([base_tok[:, None], cand[:, :K - 1]], dim=1)
         cand = cand.long()
         j = torch.arange(K, dtype=torch.int32, device=dev)[None]
-        logits, self.cache = self.model.paged_verify_step(
-            self.params, self.cache, tokens, positions0[:, None] + j, slots,
+        logits, _ = self._step_fn(prog, "paged_verify_step")(
+            prog.params, prog.cache, tokens, positions0[:, None] + j, slots,
             block_tables, valid)
         sampled = bool((temps > 0).any())
         p = self._dist(logits, t_dev[:, None].expand(B, K) if sampled
@@ -596,7 +800,7 @@ class Engine:
             qprobs.gather(-1, c)[..., 0].clamp(min=1e-30)
         # greedy: the ratio is 0 or 1, and u < 1 always, so an all-greedy
         # batch draws nothing (u = 0 accepts exactly the ratios of 1)
-        u = torch.rand((B, K), generator=self._gen, device=dev) if sampled \
+        u = torch.rand((B, K), generator=prog.gen, device=dev) if sampled \
             else torch.zeros((B, K), device=dev)
         ok = (u < ratio) & (j < ncand[:, None])
         n_acc = torch.cumprod(ok.long(), dim=1).sum(dim=1)     # (B,)
@@ -611,9 +815,9 @@ class Engine:
             # the reference draws categorical(log(res + 1e-30)): the same
             # law, as weights (multinomial refuses an all-zero row)
             draw = torch.multinomial((res + 1e-30).view(B * K, -1), 1,
-                                     generator=self._gen).view(B, K)
+                                     generator=prog.gen).view(B, K)
             rep = torch.where(t_dev[:, None] > 0, draw, rep)
-        plain = self._sample(logits[:, 0], temps, t_dev).long()
+        plain = self._sample(logits[:, 0], temps, t_dev, prog.gen).long()
         rep_at = rep.gather(1, n_acc.clamp(0, K - 1)[:, None])[:, 0]
         fill = torch.where(ncand == 0, plain, rep_at)
         n = n_acc[:, None]
@@ -623,13 +827,44 @@ class Engine:
 
     def _cow_impl(self, cache: dict, src: int, dst: int) -> dict:
         # scale pools COW in lockstep with their KV pools: a copied block
-        # is meaningless without the scales its bytes were written under
-        for name in _POOL_KEYS:
-            if name in cache:
-                cache[name][:, dst] = cache[name][:, src]
+        # is meaningless without the scales its bytes were written under;
+        # on a mesh every shard's pools copy (every dp replica too)
+        for pools in self._pool_shards(cache):
+            for name in _POOL_KEYS:
+                if name in pools:
+                    pools[name][:, dst] = pools[name][:, src]
         return cache
 
-    def _upload(self, *arrays: np.ndarray) -> list[torch.Tensor]:
+    def _apply_moves(self, pools: dict, moves: list[tuple[int, int, int]]
+                     ) -> None:
+        """Intra-mesh block migration (dp mode): copy the moved blocks' bytes
+        from the source shard's pool replica to the destination's, so a
+        cross-shard prefix alias reads valid KV on its new home shard.
+        Scale pools ride along (``_POOL_KEYS``).  Moves are grouped per
+        (src, dst) pair in first-occurrence order, which keeps chained
+        re-homes right: a block moved A -> B then B -> C is read from B's
+        already-updated replica."""
+        grouped: dict[tuple[int, int], list[int]] = {}
+        for b, src, dst in moves:
+            grouped.setdefault((src, dst), []).append(b)
+        shards = self._pool_shards(pools)
+        for (src, dst), blocks in grouped.items():
+            i_src = self._block_index(blocks, shards[src]["k"].device)
+            i_dst = self._block_index(blocks, shards[dst]["k"].device)
+            for name in _POOL_KEYS:
+                if name in shards[src]:
+                    coll.permute(shards[src][name], shards[dst][name],
+                                 i_src, i_dst)
+
+    def _uploader(self, prog: _Program):
+        """The upload of a program's call: ``_upload`` to the engine's
+        device, or to the program's own."""
+        if prog.device == self.device:
+            return self._upload
+        return lambda *arrays: self._upload(*arrays, device=prog.device)
+
+    def _upload(self, *arrays: np.ndarray, device=None
+                ) -> list[torch.Tensor]:
         """One host->device copy for all of a device call's int32 operands
         (a float32 array rides as its bits, a bool one as 0 / 1): they are
         packed into one buffer and handed back as int32 views.  On the card
@@ -639,10 +874,11 @@ class Engine:
         record) until the step's reconcile has waited."""
         flat = torch.from_numpy(np.concatenate(
             [a.reshape(-1) for a in arrays]).astype(np.int32, copy=False))
-        if self.device.type == "cuda":
+        device = self.device if device is None else device
+        if device.type == "cuda":
             pinned = flat.pin_memory()
             self._pins.append(pinned)
-            dev = pinned.to(self.device, non_blocking=True)
+            dev = pinned.to(device, non_blocking=True)
         else:
             dev = flat
         out, o = [], 0
@@ -996,6 +1232,10 @@ class Engine:
                     # instead of crashing the engine
                     if not self._unjam():
                         raise
+        refusals = self.cache_host.alias_refusals
+        if refusals > self._c["alias_refusals"].value:
+            self._c["alias_refusals"].inc(
+                refusals - self._c["alias_refusals"].value)
         self._note_transitions(plan)
         if prev is not None:
             # _can_overlap proved the pool could back every growth
@@ -1007,11 +1247,26 @@ class Engine:
         if not running:
             return None
 
+        # intra-mesh block moves precede the COW copies and the dispatch: a
+        # cross-shard alias admitted by this plan is readable on its new
+        # home shard only once the replica copy has landed, and COW sources
+        # must be local to the writing shard (one stream orders them)
+        moves = self.cache_host.drain_moves()
+        if moves:
+            with self._phase("migrate"):
+                t0 = time.perf_counter()
+                self._apply_moves(self.cache, moves)
+                if self.spec_active:
+                    self._apply_moves(self.draft_cache, moves)
+                self._c["shard_moves"].inc(len(moves))
+                self.obs.observe("migrate/intra_mesh_s",
+                                 time.perf_counter() - t0,
+                                 buckets=DEFAULT_TIME_BUCKETS)
+
         for src, dst in plan.copies:          # copy-on-write pool copies
-            self.cache = self._cow_impl(self.cache, int(src), int(dst))
+            self._cow_impl(self.cache, int(src), int(dst))
             if spec_k:
-                self.draft_cache = self._cow_impl(self.draft_cache,
-                                                  int(src), int(dst))
+                self._cow_impl(self.draft_cache, int(src), int(dst))
             self._c["cow_copies"].inc()
 
         rec = _Inflight(plan=plan, running=running)
@@ -1200,16 +1455,29 @@ class Engine:
         sampled = bool((temps > 0).any())
         if sampled:
             extra.append(temps.view(np.int32))
-        tok, pos, tab, *rest = self._upload(tokens, positions, tables,
-                                            *extra)
-        act = rest.pop(0).bool() if self._recurrent else None
-        for n in feeds:
-            tok = torch.where(rest.pop(0).bool(), prev.fetch[n], tok)
-        t_dev = rest.pop(0).view(torch.float32) if sampled else None
-        logits, self.cache = self.model.paged_decode_step(
-            self.params, self.cache, tok, pos, tab, act)
+        outs = []
+        for prog in self._progs:
+            r = prog.rows
+            tok, pos, tab, *rest = self._uploader(prog)(
+                tokens[r], positions[r], tables[r], *(e[r] for e in extra))
+            act = rest.pop(0).bool() if self._recurrent else None
+            for n in feeds:
+                tok = torch.where(rest.pop(0).bool(),
+                                  prev.fetch[n][r].to(prog.device), tok)
+            t_dev = rest.pop(0).view(torch.float32) if sampled else None
+            with self._mesh_ctx(prog):
+                logits, _ = self._step_fn(prog, "paged_decode_step")(
+                    prog.params, prog.cache, tok, pos, tab, act)
+            outs.append(self._sample(logits, temps[r], t_dev, prog.gen))
         self._c["decode_calls"].inc()
-        fetch["dec"] = self._sample(logits, temps, t_dev)
+        fetch["dec"] = self._join(outs)
+
+    def _join(self, parts: list[torch.Tensor]) -> torch.Tensor:
+        """The programs' per-row results, in slot order, on the engine's
+        device: the step's one fetch reads them from there."""
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([p.to(self.device) for p in parts])
 
     def _dispatch_prefill(self, plan, spec_k, fetch, sampled_prefills
                           ) -> None:
@@ -1231,19 +1499,27 @@ class Engine:
             ptemps[s.slot] = s.req.temperature
             pref_active[s.slot] = True
         ptables = np.where(pref_active[:, None], self.cache_host.tables, 0)
-        slots = np.arange(B, dtype=np.int32)
         sampled = bool((ptemps > 0).any())
-        args = self._upload(toks, pos, slots, ptables, valid,
-                            *([ptemps.view(np.int32)] if sampled else []))
-        t_dev = args.pop().view(torch.float32) if sampled else None
-        logits, self.cache = self.model.paged_prefill_step(
-            self.params, self.cache, *args)
+        outs = []
+        for prog in self._progs:
+            r = prog.rows
+            # a program's slots are its rows of the per-slot state (the
+            # recurrent families run one program over every slot)
+            slots = np.arange(len(valid[r]), dtype=np.int32)
+            args = self._uploader(prog)(
+                toks[r], pos[r], slots, ptables[r], valid[r],
+                *([ptemps[r].view(np.int32)] if sampled else []))
+            t_dev = args.pop().view(torch.float32) if sampled else None
+            with self._mesh_ctx(prog):
+                logits, _ = self._step_fn(prog, "paged_prefill_step")(
+                    prog.params, prog.cache, *args)
+                outs.append(self._sample(logits, ptemps[r], t_dev, prog.gen))
+                if spec_k:            # keep the draft pool in step; its
+                    # logits are discarded (the reference's jit drops them)
+                    self._step_fn(prog, "paged_prefill_step", draft=True)(
+                        prog.draft_params, prog.draft_cache, *args)
         self._c["prefill_calls"].inc()
-        nxt = self._sample(logits, ptemps, t_dev)
-        if spec_k:                        # keep the draft pool in step; its
-            # logits are discarded (the reference's jit drops them unused)
-            _, self.draft_cache = self.draft_model.paged_prefill_step(
-                self.draft_params, self.draft_cache, *args)
+        nxt = self._join(outs)
         for s, n in plan.prefill:
             if self.obs.enabled and s.req.rid not in self._chunked:
                 self._chunked.add(s.req.rid)
@@ -1287,15 +1563,26 @@ class Engine:
             ncand[s.slot] = m
             valid[s.slot] = max(1, m)         # verify rows consumed
             spec_meta.append((s, m, K))
-        tok, pos, tab, frc, kl_d, sp, slots, va, nc, tbits = self._upload(
-            tokens, positions, tables, forced, known_len, start_pos,
-            np.arange(B, dtype=np.int32), valid, ncand, temps.view(np.int32))
-        t_dev = tbits.view(torch.float32)
-        cand, qprobs = self._draft_impl(frc, kl_d, sp, tab, temps, t_dev)
-        out, n_acc = self._verify_impl(tok, cand, qprobs, pos, slots, tab,
-                                       va, nc, temps, t_dev)
+        outs, accs = [], []
+        for prog in self._progs:
+            r = prog.rows
+            tok, pos, tab, frc, kl_d, sp, slots, va, nc, tbits = \
+                self._uploader(prog)(
+                    tokens[r], positions[r], tables[r], forced[r],
+                    known_len[r], start_pos[r],
+                    np.arange(len(valid[r]), dtype=np.int32), valid[r],
+                    ncand[r], temps[r].view(np.int32))
+            t_dev = tbits.view(torch.float32)
+            with self._mesh_ctx(prog):
+                cand, qprobs = self._draft_impl(frc, kl_d, sp, tab, temps[r],
+                                                t_dev, prog)
+                out, n_acc = self._verify_impl(tok, cand, qprobs, pos, slots,
+                                               tab, va, nc, temps[r], t_dev,
+                                               prog)
+            outs.append(out)
+            accs.append(n_acc)
         self._c["spec_cycles"].inc()
-        return out, n_acc
+        return self._join(outs), self._join(accs)
 
     def _fold_spec(self, plan, out, n_acc, spec_meta) -> None:
         """Fold one speculative cycle back into request state: append the
@@ -1812,12 +2099,14 @@ class Engine:
         self._admit_step.setdefault(st.req.rid, self._steps)
         return True
 
-    def _block_index(self, blocks: list[int]) -> torch.Tensor:
-        """Block ids as an index tensor on the engine's device (pinned and
-        non-blocking on the card, so nothing waits for the device)."""
+    def _block_index(self, blocks: list[int], device=None) -> torch.Tensor:
+        """Block ids as an index tensor on ``device`` (default the engine's;
+        pinned and non-blocking on the card, so nothing waits for the
+        device)."""
+        device = self.device if device is None else device
         idx = torch.tensor(blocks, dtype=torch.long)
-        if self.device.type == "cuda":
-            idx = idx.pin_memory().to(self.device, non_blocking=True)
+        if device.type == "cuda":
+            idx = idx.pin_memory().to(device, non_blocking=True)
         return idx
 
     def _gather_blocks(self, pools: dict, blocks: list[int]) -> dict:
@@ -1958,5 +2247,7 @@ class Engine:
             "audit_violations": d["audit_violations"],
             "callback_errors": d["callback_errors"],
             "migrated_blocks": d["migrated_blocks"],
+            "alias_refusals": d["alias_refusals"],
+            "shard_moves": d["shard_moves"],
         }
         return out, stats

@@ -18,7 +18,10 @@ needs to resume *byte-identically*:
     else about scheduling is deterministic host state;
   - the device pools — the target's and, in spec mode, the draft's — as raw
     bytes with their dtype and shape, so bf16, int8 and fp8 pools and their
-    scale pools round-trip bit for bit (numpy has no bf16 or fp8).
+    scale pools round-trip bit for bit (numpy has no bf16 or fp8).  On a
+    serving mesh the pools are a list, one entry per shard in mesh order
+    (a dp replica holds its own slots' blocks only, so every replica is
+    kept), and every data shard's generator state is kept beside the first.
 
 NOT captured: ``on_token`` callbacks (arbitrary closures are not
 serializable; a restored engine streams nothing for pre-crash requests).
@@ -69,6 +72,36 @@ def _pool_bytes(pools: dict) -> dict:
             for name, t in pools.items()}
 
 
+def _shard_pools(engine, draft: bool = False) -> list[dict]:
+    """The engine's pool tensors, one dict per shard (one without a mesh)."""
+    return engine._pool_shards(engine.draft_cache if draft else engine.cache)
+
+
+def _capture_pools(engine, draft: bool = False):
+    """A dict of pool bytes without a mesh; a list of them, one per shard,
+    on one."""
+    shards = [_pool_bytes(p) for p in _shard_pools(engine, draft)]
+    return shards if engine.mesh is not None else shards[0]
+
+
+def _check_shards(engine, saved, what: str, draft: bool = False) -> None:
+    """Refuse saved pools whose layout (one dict, or one per shard) or
+    contents differ from the engine's."""
+    mine = _shard_pools(engine, draft)
+    if isinstance(saved, dict) != (engine.mesh is None) or \
+            (engine.mesh is not None and len(saved) != len(mine)):
+        raise ValueError(f"{what} pools were saved for another mesh")
+    for pools, got in zip(mine, [saved] if isinstance(saved, dict)
+                          else saved):
+        _check_pools(pools, got, what)
+
+
+def _load_shards(engine, saved, draft: bool = False) -> None:
+    for pools, got in zip(_shard_pools(engine, draft),
+                          [saved] if isinstance(saved, dict) else saved):
+        _load_pools(pools, got)
+
+
 def _check_pools(engine_pools: dict, saved: dict, what: str) -> None:
     """Refuse pools whose names, dtypes or shapes differ from the engine's
     (before anything is written)."""
@@ -112,6 +145,8 @@ def capture(engine) -> dict:
     host = {
         "rid": engine._rid,
         "generator": engine._gen.get_state().numpy().copy(),
+        "generators": [p.gen.get_state().numpy().copy()
+                       for p in engine._progs],
         "counters": {k: c.value for k, c in engine._c.items()},
         "tick": engine._tick,
         "drained": engine._drained,
@@ -148,8 +183,8 @@ def capture(engine) -> dict:
             "admission_paused": cache.admission_paused,
         },
     }
-    pools = _pool_bytes(engine.cache)
-    draft_pools = _pool_bytes(engine.draft_cache) \
+    pools = _capture_pools(engine)
+    draft_pools = _capture_pools(engine, draft=True) \
         if engine.spec_active else None
     # deep-copy the host tree: an in-memory snapshot must stay frozen while
     # the source engine keeps mutating its RequestStates (the pool bytes
@@ -239,9 +274,9 @@ def restore_into(engine, snap: dict) -> None:
     if diffs:
         raise ValueError(f"ServeConfig mismatch (snapshot, engine): "
                          f"{diffs}")
-    _check_pools(engine.cache, snap["pools"], "target")
+    _check_shards(engine, snap["pools"], "target")
     if engine.spec_active:
-        _check_pools(engine.draft_cache, snap["draft_pools"], "draft")
+        _check_shards(engine, snap["draft_pools"], "draft", draft=True)
 
     engine.reset()
     # copy on the way in as well: the same snapshot object can restore
@@ -278,7 +313,9 @@ def restore_into(engine, snap: dict) -> None:
     cache.admission_paused = ca["admission_paused"]
 
     engine._rid = host["rid"]
-    engine._gen.set_state(torch.from_numpy(host["generator"]))
+    for prog, state in zip(engine._progs, host.get(
+            "generators", [host["generator"]])):
+        prog.gen.set_state(torch.from_numpy(state))
     for k, v in host["counters"].items():
         if k in engine._c:
             engine._c[k].value = v
@@ -290,9 +327,9 @@ def restore_into(engine, snap: dict) -> None:
     for name in _RID_DICTS:
         getattr(engine, name).update(host["rid_dicts"][name])
 
-    _load_pools(engine.cache, snap["pools"])
+    _load_shards(engine, snap["pools"])
     if engine.spec_active:
-        _load_pools(engine.draft_cache, snap["draft_pools"])
+        _load_shards(engine, snap["draft_pools"], draft=True)
     cache.check()                       # restored state must audit clean
 
 
@@ -409,13 +446,15 @@ def adopt_requests(engine, snap: dict) -> list[int]:
 
 
 def restore_engine(snap: dict, model, params, draft_model=None,
-                   draft_params=None, telemetry=None, device=None):
-    """Build a fresh Engine from the snapshot's own ServeConfig and restore
-    into it (the launch CLI's ``--restore`` path)."""
+                   draft_params=None, telemetry=None, device=None,
+                   mesh=None):
+    """Build a fresh Engine from the snapshot's own ServeConfig (on
+    ``mesh`` when given) and restore into it (the launch CLI's
+    ``--restore`` path)."""
     from repro_torch.serve.engine import Engine, ServeConfig
     cfg = ServeConfig(**snap["header"]["serve_config"])
     eng = Engine(model, params, cfg, draft_model=draft_model,
                  draft_params=draft_params, telemetry=telemetry,
-                 device=device)
+                 device=device, mesh=mesh)
     restore_into(eng, snap)
     return eng
