@@ -114,7 +114,14 @@ nothing of JAX or of the JAX package.  Phases:
     through ``Model.forward`` (K3); then SPA-pruned by magnitude (L1) at
     ratio 0.5 on the card and the same checks on the pruned model; then
     OBSPA-pruned at ratio 0.5 with data-free calibration (K4 on
-    ``ssm.w_out``) and the same checks again;
+    ``ssm.w_out``) and the same checks again; then (9b) the dense model
+    at its depth over logical meshes
+    (``phase_family_meshes``; 12b and 13b likewise): 8 of its requests at
+    8 tokens staged as 4d stages them on no mesh, 1x1 (token-equal),
+    2x1, 1x2 and 2x2 (held to 1x1 by teacher forcing through a 1x1
+    engine), a float32 twin at 2 layers token-exact on every mesh, each
+    mesh's tok/s, peak memory, collective bytes by kind, replica audit and
+    K1 launches (shards x attention layers x device calls) printed;
 10. the flash-attention kernel K2 against its plain PyTorch version (the
     reference's six test shapes, the main path's 8 x 512 TinyLlama shape
     and its pruned D 64 / DV 32 form, a length that is not a multiple of
@@ -162,7 +169,10 @@ nothing of JAX or of the JAX package.  Phases:
     L1-pruned and OBSPA-pruned (K4) at ratio 0.5 on the card, each checked
     the same way, with every reconstructed consumer's layer-output error
     against plain slicing recorded, and the four kernels' launches held to
-    their formulas; its prompts come from a generator of its own;
+    their formulas; its prompts come from a generator of its own; then
+    (12b) the dense model over logical meshes as 9b, with 1x4 too (the 50
+    SSM heads and the 25 / 5 attention heads replicate over 4, the MLP
+    splits);
 13. the moe family at full width: ``qwen2-moe-a2.7b`` (cut to 12 of its 24
     layers, ``MOE_LAYERS``; d 2048,
     16 heads of 128 over 16 KV heads, 60 routed experts top-4 of width
@@ -183,7 +193,17 @@ nothing of JAX or of the JAX package.  Phases:
     experts' ``w_down`` swept by K4 all 60 at once, every reconstructed
     consumer's layer-output error held below plain slicing; each pruned
     model checked layer by layer and served again, and the launches of K1,
-    K2 and K4 held to their formulas;
+    K2 and K4 held to their formulas; then (13b), the pruned models freed,
+    the dense model over logical meshes as 9b, each mesh held by forcing
+    1x1's tokens through it with its routing pinned to 1x1's (a router
+    near-tie flips an expert between two roundings, as phase 13 reads it):
+    the rows that no differing capacity drop reaches held to 1x1 within
+    4d's tensor-parallel bound (the dp mesh too: its per-shard capacity
+    runs the expert GEMMs at other row counts), the gspmd meshes' drop
+    counts equal to 1x1's, the
+    twin's router top-k gaps asserted too; 2x1 runs "dp" (each data
+    shard's capacity from its own tokens, the reference's rule), so where
+    the twin's 2x1 tokens differ its rows are held so too, argmax-exact;
 14. the cnn family at full width (float32, random init from a seed, data
     from a generator of its own): ``resnet50-cifar`` (21,282,112
     parameters) trained by ``Trainer`` 100 steps of 128 ``PrototypeImages``
@@ -250,6 +270,7 @@ share, K1's time per step, top kernels).  The default is the full run without th
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -2147,7 +2168,9 @@ GAP_F32 = 2e-5
 # partial product to bf16 before the all-reduce adds it, twice a layer, so
 # their activations are rounded at other places, as phase 4's paged steps
 # are against the full-sequence forward: they are held to phase 4's
-# teacher-forcing bound (``tf_tol``, 0.25 on the logits).
+# teacher-forcing bound (``tf_tol``, 0.25 on the logits).  So are the moe
+# family's data-parallel shards: each counts its capacity from its own
+# tokens, so its expert GEMMs run at other row counts at every layer.
 SHARD_TOL_DP_STEPS = 1.0
 SHARD_TOL_TP = 0.25
 
@@ -2163,17 +2186,27 @@ def sharded_requests(reqs, n: int, shared: int, gen: int) -> list[dict]:
             for r in pre + ind]
 
 
+def release(engine) -> None:
+    """Drop the wrappers set on ``engine`` (``record_emitted``'s, a
+    ``mesh_run`` hook's): they close over its bound methods, so the engine
+    and its pools would wait for the cycle collector after ``del``."""
+    for name in [n for n in vars(engine) if callable(getattr(type(engine), n,
+                                                             None))]:
+        del vars(engine)[name]
+
+
 def record_emitted(engine, force: dict | None = None) -> dict:
     """Wrap ``engine`` so that every emitted token's logits row is kept
     (float32, on the card): ``{rid: [row, ...]}`` in emission order.  With
     ``force`` ({rid: tokens}) each emitted token is replaced by force's at
     its index once it is folded — teacher forcing through the engine's own
     paged steps, so the rows are what this engine computes on the forced
-    sequences.  Lockstep ``step()`` only (one prefill and one decode
-    ``_sample`` call a step on a one-program engine)."""
+    sequences.  Lockstep ``step()`` only (a step's prefill and decode call
+    each ``_sample`` once a program, the programs in slot order)."""
     rows: dict[int, list] = {}
     calls: list = []
     sample, reconcile = engine._sample, engine._reconcile
+    P = len(engine._progs)
 
     def capture(logits, temps, t_dev=None, gen=None):
         calls.append(logits)
@@ -2182,8 +2215,8 @@ def record_emitted(engine, force: dict | None = None) -> dict:
     def fold(rec, newer=None):
         got = list(calls)
         calls.clear()
-        pre = got[0] if rec.plan.prefill else None
-        dec = got[-1] if rec.plan.decode else None
+        pre = torch.cat(got[:P]) if rec.plan.prefill else None
+        dec = torch.cat(got[-P:]) if rec.plan.decode else None
         reconcile(rec, newer)
         emitted = [(st, pre[slot]) for st, slot in rec.pre_rows] + \
             [(st, dec[slot]) for st, slot, emit in rec.decode_rows if emit]
@@ -2244,6 +2277,7 @@ def forced_shortfall(model, params, scfg, seqs: list) -> list[dict]:
                     "max_shortfall_bf16_steps": max(
                         d / bf16_step(t) for d, t in zip(short, tops)),
                     "argmax_share": float(np.mean([d == 0 for d in short]))})
+    release(eng)
     del eng
     return out
 
@@ -2259,17 +2293,20 @@ def merged_forced(fs: list[dict], exact: int = 0) -> dict:
                 [f["argmax_share"] for f in fs] + [1.0] * exact))}
 
 
-def check_forced(label: str, dm, forced: dict) -> str:
+def check_forced(label: str, dm, forced: dict, phase: str = "4d",
+                 dp_rows_whole: bool = True) -> str:
     """Hold a mesh's forced shortfall to its bound (``SHARD_TOL_*``);
-    returns the bound's text."""
-    if dm[1] == 1 and forced.get("mode") == "dp":
+    returns the bound's text.  ``dp_rows_whole=False``: the data shards'
+    rows round apart from one device's at every layer (the moe family's
+    per-shard capacity), so a dp mesh takes the tensor-parallel bound."""
+    if dm[1] == 1 and forced.get("mode") == "dp" and dp_rows_whole:
         ok = forced["max_shortfall_bf16_steps"] <= SHARD_TOL_DP_STEPS
         text = f"{SHARD_TOL_DP_STEPS:g} bf16 step"
     else:
         ok = forced["max_shortfall"] <= SHARD_TOL_TP
         text = f"{SHARD_TOL_TP} (tensor parallel)"
     if not ok:
-        raise AssertionError(f"4d {label}: a forced token falls "
+        raise AssertionError(f"{phase} {label}: a forced token falls "
                              f"{forced['max_shortfall']} "
                              f"({forced['max_shortfall_bf16_steps']} bf16 "
                              f"steps) short of the 1x1 maximum, over {text}")
@@ -2277,13 +2314,17 @@ def check_forced(label: str, dm, forced: dict) -> str:
 
 
 def mesh_run(label, model, params, scfg, reqs, dm, L: int,
-             record: bool = False, card: str = ""
+             record: bool = False, card: str = "", phase: str = "4d",
+             hook=None, force: dict | None = None
              ) -> tuple[dict, dict, dict | None]:
     """One staged serve on a (data, model) mesh of ``[DEV] * d·m`` (no mesh
     for ``dm`` None): (its numbers — tok/s, peak memory, collective bytes
     by kind, the intra-mesh move time and counters, K1's launches held to
-    shards x layers x device calls, the replica audit —, its tokens, and
-    with ``record`` its emitted logits rows)."""
+    shards x ``L`` attention layers x device calls, the MoE assignments
+    its expert capacities dropped, the replica audit —, its tokens, and
+    with ``record`` or ``force`` its emitted logits rows).  ``hook(engine)``
+    runs on the new engine before it serves; ``force`` ({rid: tokens})
+    teacher-forces its tokens (``record_emitted``)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     mesh = None if dm is None else make_serve_mesh(
@@ -2291,15 +2332,19 @@ def mesh_run(label, model, params, scfg, reqs, dm, L: int,
     # telemetry where blocks move (dp meshes): it times the intra-mesh moves
     tel = Telemetry(enabled=dm is not None and dm[0] > 1 and dm[1] == 1)
     eng = Engine(model, params, scfg, mesh=mesh, telemetry=tel)
-    rows = record_emitted(eng) if record else None
+    if hook is not None:
+        hook(eng)
+    rows = record_emitted(eng, force) if record or force else None
     reset_collectives()
     reset_launches()
+    moe_mod.reset_dropped()
     torch.cuda.synchronize()
     t0 = time.time()
     toks = staged_serve(eng, reqs)
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = launch_counts()
+    dropped = moe_mod.dropped_assignments()
     c = {k: eng._c[k].value for k in ("decode_calls", "prefill_calls",
                                       "decode_tokens", "prefill_tokens",
                                       "shard_moves", "alias_refusals",
@@ -2307,13 +2352,14 @@ def mesh_run(label, model, params, scfg, reqs, dm, L: int,
     S = 1 if mesh is None else mesh.size
     want = {"decode": S * L * c["decode_calls"],
             "prefill": S * L * c["prefill_calls"]}
-    if {k: launches[k] for k in want} != want or launches["total"] == 0:
-        raise AssertionError(f"4d {label}: K1 launches {launches} != shards "
-                             f"{S} x {L} layers x device calls {want}")
+    if {k: launches[k] for k in want} != want or (
+            L and launches["total"] == 0):
+        raise AssertionError(f"{phase} {label}: K1 launches {launches} != "
+                             f"shards {S} x {L} layers x device calls {want}")
     if len(toks) != len(reqs) or any(
             len(t) != r["max_new_tokens"] for t, r in zip(
                 toks.values(), reqs)):
-        raise AssertionError(f"4d {label}: not every request finished")
+        raise AssertionError(f"{phase} {label}: not every request finished")
     audit = eng.replica_audit()
     eng.cache_host.check()
     h = tel.registry.histograms.get("migrate/intra_mesh_s")
@@ -2323,8 +2369,10 @@ def mesh_run(label, model, params, scfg, reqs, dm, L: int,
            / wall, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "collectives": collective_bytes(), "k1_launches": launches,
            "intra_mesh_s": h.summary() if h is not None else None,
-           "audit": audit, **c}
+           "audit": audit, "dropped": dropped, **c}
     coll = res["collectives"]["per_kind"]
+    drops = f"dropped assignments {dropped}; " if model.cfg.n_experts \
+        else ""
     print(f"  {label:6s} {eng.shard_mode:5s} {wall:6.2f} s ({card}): "
           f"{res['new_tok_per_s']:.1f} new tok/s, "
           f"{res['total_tok_per_s']:.1f} tok/s with prefill; peak "
@@ -2333,9 +2381,10 @@ def mesh_run(label, model, params, scfg, reqs, dm, L: int,
           f"{c['shard_moves']}, alias_refusals {c['alias_refusals']}, "
           f"intra-mesh moves "
           f"{'none' if h is None else f'{h.total * 1e3:.3f} ms host'}; "
-          f"K1 {launches['decode']} + {launches['prefill']} = {S} x {L} x "
-          f"({c['decode_calls']} + {c['prefill_calls']}); audit {audit}",
-          flush=True)
+          f"{drops}K1 {launches['decode']} + {launches['prefill']} = {S} x "
+          f"{L} x ({c['decode_calls']} + {c['prefill_calls']}); audit "
+          f"{audit}", flush=True)
+    release(eng)
     del eng
     return res, toks, rows
 
@@ -2343,7 +2392,10 @@ def mesh_run(label, model, params, scfg, reqs, dm, L: int,
 def sharded_k1_checks(rng) -> float:
     """K1 against its plain version at the per-shard shapes the meshes give
     it (B 16 / 8 rows, KH 2 / 1; G 8, D 64, bs 16, NB 80), decode and the
-    prefill entry at C 128, phase 3's tolerances."""
+    prefill entry at C 128, phase 3's tolerances; then 13b's qwen2-moe on
+    1x2 (8 of its 16 heads a shard, G 1, D 128, all 16 rows, NB 32) and
+    12b's Hymba (its 25 / 5 heads replicated over ``model``, 8 rows a data
+    shard, window 1024, NB 128)."""
     worst = 0.0
     for B, KH in ((16, 4), (8, 4), (32, 2), (32, 1), (16, 2)):
         shape = dict(B=B, H=8 * KH, KH=KH, D=64, DV=64, bs=16, NB=80,
@@ -2358,6 +2410,23 @@ def sharded_k1_checks(rng) -> float:
             f"4d shard prefill B{B} KH{KH} C128",
             make_case(rng, C=128, kv_lens=starts + valid, q_starts=starts,
                       **shape), prefill=True, valid=valid))
+    bf = torch.bfloat16
+    for name, B, H, KH, D, NB, window in (
+            ("13b qwen2-moe 1x2", 16, 8, 8, 128, 32, 0),
+            ("12b hymba 2x1", 8, 25, 5, 64, 128, 1024)):
+        shape = dict(B=B, H=H, KH=KH, D=D, DV=D, bs=16, NB=NB, q_dtype=bf,
+                     pool=bf)
+        top = NB * 16
+        worst = max(worst, check_case(
+            f"{name} decode B{B} H{H} KH{KH}", make_case(
+                rng, C=1, kv_lens=ragged(rng, B, 1, top), **shape),
+            window=window))
+        valid = rng.integers(1, 129, size=B).astype(np.int32)
+        starts = ragged(rng, B, 0, top - 128)
+        worst = max(worst, check_case(
+            f"{name} prefill B{B} C128", make_case(
+                rng, C=128, kv_lens=starts + valid, q_starts=starts,
+                **shape), window=window, prefill=True, valid=valid))
     return worst
 
 
@@ -2468,6 +2537,422 @@ def phase_sharded(model, params, scfg, reqs, seed: int) -> dict:
                           for k in ("decode", "prefill")}
     res["seconds"] = time.time() - t_start
     print(f"  4d: {res['seconds']:.1f} s; K1 launches on the bf16 meshes "
+          f"{res['k1_launches']} ({card})", flush=True)
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phases 9b, 12b and 13b: the ssm, hybrid and moe families over logical
+# (data, model) meshes of the card, as 4d serves TinyLlama
+# ---------------------------------------------------------------------------
+
+# 8 of the phase's requests (4 behind its shared prefix, the shortest staged
+# alone first) at 8 new tokens, on no mesh, 1x1 and ``meshes``; Hymba also
+# on ``hybrid_meshes`` (1x4: its 50 SSM heads and 25 / 5 attention heads
+# replicate over 4 shards, its MLP splits).  The bf16 meshes serve the
+# phase's full-width model at its depth (8, 8, 12): at 16 tokens the three
+# took 89 s of a slow host's 1150 s run (PERF.md §6), so the tokens are cut
+FAMILY_MESHES = dict(requests=8, shared=4, gen=8,
+                     meshes=((2, 1), (1, 2), (2, 2)),
+                     hybrid_meshes=((1, 4),))
+# the float32 twin's router: every real token's k-th minus (k+1)-th router
+# probability on the twin's 1x1 run must exceed this before the meshes'
+# tokens are compared exactly.  The meshes' f32 router logits differ from
+# 1x1's by a few ulps of values ~1 (~1e-7), their probabilities of ~0.05
+# by ~1e-8: the bound is ten times that
+ROUTER_GAP_F32 = 1e-7
+
+
+class RoutePin:
+    """The moe family's routing pinned to one run's choices, so that only
+    rounding separates a mesh from 1x1.  ``attach(engine)`` keys every row
+    of the engine's device calls by its token prefix (its own token and
+    every one before it: a node of a trie shared by the runs, so a prefix
+    computed for two requests is one key).  Within ``recording()`` every
+    ``moe.route`` call keeps its rows' experts (top-k, in order) under
+    (layer, key), the smallest gap between a real token's k-th and
+    (k+1)-th router probability, and, from ``moe.dispatch``, which of
+    each row's k assignments the capacity dropped.  Within ``replaying()`` every row
+    takes the recorded experts, weighted by this run's own router
+    probabilities; rows whose own top-k differs are counted (``flips``),
+    and rows whose capacity drops differ from the recording's are the keys
+    of ``differing()``: they, and every later row of a sequence through
+    them, computed another function.  Lockstep serving without
+    speculation: a device call runs each program's layers in turn, the
+    programs in slot order."""
+
+    def __init__(self):
+        self.nodes: dict = {}
+        self.chosen: dict = {}            # (layer, key) -> row of `table`
+        self.table = None                 # recorded experts (N, k), card
+
+    # -- the engine's rows ------------------------------------------------
+    def attach(self, eng) -> None:
+        self.programs, self.paths = len(eng._progs), {}
+        B, C = eng.cfg.max_seqs, eng.cfg.chunk_size
+        dec, pre = eng._dispatch_decode, eng._dispatch_prefill
+
+        def decode(plan, *a, **k):
+            keys = [None] * B
+            for s in plan.decode:
+                keys[s.slot] = self.path(s, s.num_cached + 1)[s.num_cached]
+            self.call(keys)
+            return dec(plan, *a, **k)
+
+        def prefill(plan, *a, **k):
+            keys = [None] * (B * C)
+            for s, n in plan.prefill:
+                path = self.path(s, s.num_cached + n)
+                keys[s.slot * C:s.slot * C + n] = \
+                    path[s.num_cached:s.num_cached + n]
+            self.call(keys)
+            return pre(plan, *a, **k)
+        eng._dispatch_decode, eng._dispatch_prefill = decode, prefill
+
+    def path(self, s, n: int) -> list[int]:
+        """The trie nodes of the first ``n`` prefixes of ``s``'s tokens."""
+        path = self.paths.setdefault(s.req.rid, [])
+        node = path[-1] if path else -1
+        for tok in s.seq[len(path):n]:
+            node = self.nodes.setdefault((node, tok), len(self.nodes))
+            path.append(node)
+        return path
+
+    def call(self, keys: list) -> None:
+        self.keys, self.j = keys, 0
+
+    # -- the spies ----------------------------------------------------------
+    def _patch(self, mode: str):
+        shards, route, dispatch = moe_mod.moe_shards, moe_mod.route, \
+            moe_mod.dispatch
+        self.mode, self.rec, self.lost, self.gaps = mode, [], [], []
+        self.flip_count, self.unpinned = [], set()
+
+        def spy_shards(ps, cfg, xts, masks, ex=moe_mod.ONE_DEVICE):
+            P, L = self.programs, cfg.num_layers
+            prog, layer = divmod(self.j, L)
+            self.j += 1
+            n = len(self.keys) // P
+            assert prog < P and xts[0].shape[0] == n, (prog, P, n, xts[0].shape)
+            self.cur = layer, self.keys[prog * n:(prog + 1) * n]
+            self.first_route = self.first_dispatch = True
+            self.pinned = None
+            return shards(ps, cfg, xts, masks, ex)
+
+        def spy_route(logits, cfg, token_mask):
+            probs, top_w, top_e = route(logits, cfg, token_mask)
+            first, self.first_route = self.first_route, False
+            layer, keys = self.cur
+            if self.mode == "record":
+                if first:
+                    self.rec.append((layer, keys, top_e))
+                    top = probs.topk(cfg.top_k + 1, dim=-1).values
+                    gap = top[:, cfg.top_k - 1] - top[:, cfg.top_k]
+                    if token_mask is not None:
+                        gap = torch.where(token_mask.reshape(-1), gap,
+                                          math.inf)
+                    self.gaps.append(gap.min())
+                return probs, top_w, top_e
+            if self.pinned is None:
+                idx = [self.chosen.get((layer, k), -1) if k is not None
+                       else -1 for k in keys]
+                self.unpinned.update(k for k, i in zip(keys, idx)
+                                     if k is not None and i < 0)
+                idx = torch.tensor(idx, device=top_e.device)
+                self.pinned = torch.where(
+                    (idx >= 0)[:, None], self.table[idx.clamp(min=0)], top_e)
+                self.flip_count.append((self.pinned.sort(-1).values !=
+                                        top_e.sort(-1).values).any(-1).sum())
+            pin = self.pinned
+            w = probs.gather(-1, pin.clamp(max=cfg.n_experts - 1))
+            return probs, w / w.sum(-1, keepdim=True).clamp(min=1e-9), pin
+
+        def spy_dispatch(xt, top_e, top_w, cfg):
+            buf, groups, C = dispatch(xt, top_e, top_w, cfg)
+            if self.first_dispatch:
+                self.first_dispatch = False
+                T, k = top_e.shape
+                TG = T // len(groups)
+                # each (row, j) assignment: the sorted order's ``order``
+                # maps back to row-major positions
+                lost = torch.zeros(T * k, dtype=torch.bool, device=xt.device)
+                for g, gr in enumerate(groups):
+                    lost[g * TG * k + gr[5][~gr[4]]] = True
+                self.lost.append((*self.cur, lost.view(T, k)))
+            return buf, groups, C
+
+        moe_mod.moe_shards, moe_mod.route, moe_mod.dispatch = \
+            spy_shards, spy_route, spy_dispatch
+        return shards, route, dispatch
+
+    def _lost_flags(self) -> dict:
+        """(layer, key) -> the drop patterns of its computations, for the
+        keys that lost an assignment (the others kept all k)."""
+        flags: dict = {}
+        for layer, keys, lost in self.lost:
+            rows = lost.any(-1).nonzero().flatten().tolist()
+            for i, f in zip(rows, lost[rows].tolist()):
+                if keys[i] is not None:
+                    flags.setdefault((layer, keys[i]), set()).add(tuple(f))
+        return flags
+
+    @contextlib.contextmanager
+    def recording(self):
+        real = self._patch("record")
+        try:
+            yield self
+        finally:
+            moe_mod.moe_shards, moe_mod.route, moe_mod.dispatch = real
+        rows, at = [], 0
+        for layer, keys, top_e in self.rec:
+            live = [i for i, k in enumerate(keys) if k is not None]
+            for j, i in enumerate(live):      # a key's first computation
+                self.chosen.setdefault((layer, keys[i]), at + j)
+            rows.append(top_e[live])
+            at += len(live)
+        self.table = torch.cat(rows)
+        self.min_gap = float(torch.stack(self.gaps).min()) \
+            if self.gaps else math.inf
+        self.one_flags = self._lost_flags()
+
+    @contextlib.contextmanager
+    def replaying(self):
+        real = self._patch("replay")
+        try:
+            yield self
+        finally:
+            moe_mod.moe_shards, moe_mod.route, moe_mod.dispatch = real
+        self.flips = int(sum(int(f) for f in self.flip_count))
+        flags, one = self._lost_flags(), self.one_flags
+        self.diff = {k for lk in flags.keys() | one.keys()
+                     if flags.get(lk) != one.get(lk) for k in lk[1:]}
+        self.diff |= self.unpinned
+
+    def held(self, reqs, rows: dict, force: dict) -> tuple[dict, int]:
+        """The replayed run's rows that no differing key reaches (a row is
+        computed at the position before its token's), held against the
+        forced 1x1 tokens: (the shortfall dict of ``forced_shortfall``'s
+        form over them, the count of rows left out)."""
+        short, tops, out = [], [], 0
+        for rid, rr in rows.items():
+            path, plen = self.paths[rid], len(reqs[rid]["prompt"])
+            first = next((q for q, k in enumerate(path) if k in self.diff),
+                         len(path))
+            for i, row in enumerate(rr):
+                if plen + i - 1 >= first:
+                    out += 1
+                    continue
+                top = float(row.max())
+                tops.append(top)
+                short.append(top - float(row[force[rid][i]]))
+        if not short:
+            return {"max_shortfall": math.inf,
+                    "max_shortfall_bf16_steps": math.inf,
+                    "argmax_share": 0.0}, out
+        return {"max_shortfall": max(short),
+                "max_shortfall_bf16_steps": max(
+                    d / bf16_step(t) for d, t in zip(short, tops)),
+                "argmax_share": float(np.mean([d == 0 for d in short]))}, out
+
+
+def pinned_meshes(tag, label_of, run, m, p, dm_list, n, one, one_toks, pin,
+                  reqs, exact: bool) -> dict:
+    """(b) / (c) for the moe family: every mesh of ``dm_list`` serves the
+    1x1 run's tokens forced, its routing pinned to the 1x1 run's
+    (``RoutePin``); the rows no differing capacity drop reaches are held
+    to the 1x1 tokens — in bf16 by ``check_forced`` at the tensor-parallel
+    bound on every mesh (a dp shard's capacity counts its own tokens, so
+    its rows round apart too), as argmax (``exact``, the float32 twin).  A mesh with one data shard keeps 1x1's slot order
+    and capacity, so every row is held there; a gspmd mesh's capacity
+    counts the step's tokens, so its drop count is 1x1's."""
+    out = {}
+    for dm in dm_list:
+        label = label_of(dm)
+        with pin.replaying():
+            r, _, rows = run(f"{label} pinned", m, p, dm, n, hook=pin.attach,
+                             force=one_toks)
+        forced, left = pin.held(reqs, rows, one_toks)
+        forced["mode"] = r["mode"]
+        total = sum(len(v) for v in rows.values())
+        if dm[0] == 1 and left:
+            raise AssertionError(f"{tag} {label} pinned: {left} rows reached "
+                                 f"by other drops on one data shard")
+        if r["mode"] == "gspmd" and r["dropped"] != one["dropped"]:
+            raise AssertionError(f"{tag} {label} pinned: {r['dropped']} "
+                                 f"dropped assignments, 1x1 "
+                                 f"{one['dropped']}")
+        if exact:
+            if forced["argmax_share"] != 1.0:
+                raise AssertionError(f"{tag} {label} pinned: a held row's "
+                                     f"argmax is not the 1x1 token "
+                                     f"({forced})")
+            tol = "argmax"
+        else:
+            # a dp shard's capacity counts its own tokens, so its expert
+            # GEMMs run at other row counts than one device's: with no
+            # drop at all (capacity factor 15) its 2x1 rows fell 3 bf16
+            # steps apart at 12 layers (PERF.md §6)
+            tol = check_forced(f"{label} pinned", dm, forced, phase=tag,
+                               dp_rows_whole=False)
+        print(f"    {label} pinned to 1x1's routing ({pin.flips} rows would "
+              f"have chosen other experts; dropped {r['dropped']}, 1x1 "
+              f"{one['dropped']}): {total - left} of {total} rows held "
+              f"({left} reached by other capacity drops), max shortfall "
+              f"{forced['max_shortfall']:.4g} = "
+              f"{forced['max_shortfall_bf16_steps']:.2f} bf16 steps (tol "
+              f"{tol}), argmax share {forced['argmax_share']:.3f}",
+              flush=True)
+        out[label] = {**r, "forced": forced, "rows_held": total - left,
+                      "rows": total, "router_flips": pin.flips}
+    return out
+
+
+def phase_family_meshes(tag: str, model, params, scfg, reqs) -> dict:
+    """Sub-phase ``tag`` (9b, 12b, 13b) on its phase's full-width model,
+    ``ServeConfig`` and requests, over logical meshes of this one card:
+    (a) 1x1 token-equal to the engine without a mesh; (b) every other mesh
+    held to 1x1 (``check_forced``: one bf16 step on a data-parallel mesh,
+    0.25 on a tensor-parallel one) — by teacher forcing through a 1x1
+    engine, or for the moe family by teacher forcing 1x1's tokens through
+    the mesh with its routing pinned to 1x1's (``RoutePin``: a router
+    near-tie flips an expert between two roundings, and then the mesh
+    computes another function), 0.25 on every mesh; (c) a float32 twin at ``SHALLOW_LAYERS``
+    token-exact on every mesh after its top-2 gaps (and, for moe, its
+    router's top-k gaps) are asserted.  The moe family's 2x1 mesh runs
+    "dp": each data shard's capacity comes from its own tokens (the
+    reference's rule), so where the twin's 2x1 tokens differ, its rows are
+    held as (b) holds them, argmax-exact.  Every mesh's K1 launches are
+    held to shards x attention layers x device calls, its replicas
+    audited, its numbers printed."""
+    t_start = time.time()
+    card = nvidia_smi_line()
+    fm = FAMILY_MESHES
+    cfg = model.cfg
+    L = cfg.num_layers
+    meshes = fm["meshes"] + (fm["hybrid_meshes"] if cfg.hybrid else ())
+    print(f"phase {tag}: {cfg.name} ({cfg.family}, {cfg.num_layers} "
+          f"layers, full width) over logical meshes of one card ({card})",
+          flush=True)
+    rq = sharded_requests(reqs, fm["requests"], fm["shared"], fm["gen"])
+
+    def attn(n: int) -> int:
+        return 0 if cfg.family == "ssm" else n
+
+    def run(label, m, p, dm, n, record=False, **kw):
+        return mesh_run(label, m, p, scfg, rq, dm, attn(n), record=record,
+                        card=card, phase=tag, **kw)
+
+    def name(dm) -> str:
+        return f"{dm[0]}x{dm[1]}"
+
+    res = {"card": card, "model": cfg.name, "layers": L}
+    res["none"], none_toks, _ = run("none", model, params, None, L)
+    pin = RoutePin() if cfg.n_experts else None
+    with pin.recording() if pin else contextlib.nullcontext():
+        one, one_toks, _ = run("1x1", model, params, (1, 1), L,
+                               hook=pin.attach if pin else None)
+    if one_toks != none_toks:
+        raise AssertionError(f"{tag} (a): the 1x1 mesh's tokens differ from "
+                             f"the no-mesh engine's")
+    res["1x1"] = one
+    if pin:
+        print(f"    1x1: smallest router top-{cfg.top_k} gap "
+              f"{pin.min_gap:.3e} (bf16 model)", flush=True)
+    differ = []
+    for dm in meshes:
+        r, toks, _ = run(name(dm), model, params, dm, L)
+        r["exact_requests"] = sum(toks[k] == one_toks[k] for k in toks)
+        r["tokens"] = toks
+        if not cfg.n_experts:
+            differ += [(name(dm), k) for k in sorted(toks)
+                       if toks[k] != one_toks[k]]
+        res[name(dm)] = r
+    forced = forced_shortfall(model, params, scfg, [
+        (rq[k], res[label]["tokens"][k]) for label, k in differ]) \
+        if differ else []
+    for dm in meshes:
+        label = name(dm)
+        r = res[label]
+        del r["tokens"]
+        drops = f" (dropped: {r['dropped']}, 1x1 {one['dropped']})" \
+            if cfg.n_experts else ""
+        if cfg.n_experts:
+            print(f"    {label}: {r['exact_requests']} of {len(rq)} requests "
+                  f"token-equal to 1x1{drops}", flush=True)
+            continue
+        r["forced"] = merged_forced(
+            [f for (lb, _), f in zip(differ, forced) if lb == label],
+            r["exact_requests"])
+        r["forced"]["mode"] = r["mode"]
+        tol = check_forced(f"(b) {label}", dm, r["forced"], phase=tag)
+        print(f"    {label}: {r['exact_requests']} of {len(rq)} requests "
+              f"token-equal to 1x1; the others teacher forced "
+              f"through 1x1: max shortfall "
+              f"{r['forced']['max_shortfall']:.4f} = "
+              f"{r['forced']['max_shortfall_bf16_steps']:.2f} bf16 steps "
+              f"(tol {tol}), argmax share "
+              f"{r['forced']['argmax_share']:.3f}", flush=True)
+    if pin:
+        res["pinned"] = pinned_meshes(tag, name, run, model, params, meshes,
+                                      L, one, one_toks, pin, rq, exact=False)
+    del pin
+
+    # (c) the float32 twin: exact tokens on every mesh, gaps first
+    n = SHALLOW_LAYERS
+    twin = build(cfg.replace(num_layers=n, dtype="float32"))
+    tp = f32_tree(first_layers(params, n))
+    pin = RoutePin() if cfg.n_experts else None
+    with pin.recording() if pin else contextlib.nullcontext():
+        t1, t1_toks, rows = run("f32 1x1", twin, tp, (1, 1), n, record=True,
+                                hook=pin.attach if pin else None)
+    gap = min(float((lambda v: v[0] - v[1])(row.topk(2).values))
+              for rr in rows.values() for row in rr)
+    if gap <= GAP_F32:
+        raise AssertionError(f"{tag} (c): the twin's smallest top-2 gap "
+                             f"{gap} <= {GAP_F32}")
+    twins = {"1x1": t1, "min_top2_gap": gap}
+    text = f"smallest top-2 gap {gap:.3e} > {GAP_F32}"
+    if pin:
+        twins["min_router_gap"] = pin.min_gap
+        if pin.min_gap <= ROUTER_GAP_F32:
+            raise AssertionError(f"{tag} (c): the twin's smallest router "
+                                 f"top-{cfg.top_k} gap {pin.min_gap} <= "
+                                 f"{ROUTER_GAP_F32}")
+        text += (f"; smallest router top-{cfg.top_k} gap {pin.min_gap:.3e} "
+                 f"> {ROUTER_GAP_F32}")
+    dp_differs = []
+    for dm in meshes:
+        label = f"f32 {name(dm)}"
+        r, toks, _ = run(label, twin, tp, dm, n)
+        twins[label] = r
+        if toks == t1_toks:
+            continue
+        if not (cfg.n_experts and r["mode"] == "dp"):
+            raise AssertionError(f"{tag} (c) {label}: tokens differ from "
+                                 f"the twin's 1x1 run")
+        # the shards' own capacities drop other assignments than one
+        # device's (the reference's rule, held to the JAX engine by
+        # tests/test_torch_serve_sharded_families_jax.py)
+        r["exact_requests"] = sum(toks[k] == t1_toks[k] for k in toks)
+        print(f"    {label}: {r['exact_requests']} of {len(rq)} requests "
+              f"token-equal to the twin's 1x1 (dropped {r['dropped']}, 1x1 "
+              f"{t1['dropped']}: the shards' capacities); held pinned below",
+              flush=True)
+        dp_differs.append(dm)
+    if dp_differs:
+        twins["pinned"] = pinned_meshes(
+            tag, lambda dm: f"f32 {name(dm)}", run, twin, tp, dp_differs, n,
+            t1, t1_toks, pin, rq, exact=True)
+    print(f"    float32 twin at {n} layers: every mesh token-exact against "
+          f"1x1 but where noted ({text})", flush=True)
+    res["float32_twin"] = twins
+    del twin, tp, pin
+    bf16 = ["1x1"] + [name(dm) for dm in meshes]
+    res["k1_launches"] = {k: sum(res[m]["k1_launches"][k] for m in bf16)
+                          for k in ("decode", "prefill")}
+    res["seconds"] = time.time() - t_start
+    print(f"  {tag}: {res['seconds']:.1f} s; K1 launches on the bf16 meshes "
           f"{res['k1_launches']} ({card})", flush=True)
     torch.cuda.empty_cache()
     return res
@@ -3694,10 +4179,11 @@ def phase_mamba2_path(rng, quick: bool) -> dict:
             model, params = build(pc), pr.params
             del pr
         reqs = make_requests(rng, cfg.vocab_size, n_req, gen, 128, 512, 256)
+        if label == "dense":
+            dense_reqs = reqs
         res[label], n = check_mamba2(label, model, params, reqs, scfg)
         expected += n
     torch.cuda.synchronize()
-    del dense_model, dense_params
     launches = k3.launch_count()
     res["wall_s"] = time.time() - t_path
     res["k3_launches"] = launches
@@ -3715,6 +4201,10 @@ def phase_mamba2_path(rng, quick: bool) -> dict:
           f"= one per layer of every forward and per block checked",
           flush=True)
     del model, params
+    torch.cuda.empty_cache()
+    res["meshes"] = phase_family_meshes("9b", dense_model, dense_params,
+                                        scfg, dense_reqs)
+    del dense_model, dense_params
     torch.cuda.empty_cache()
     return res
 
@@ -5104,6 +5594,8 @@ def phase_hybrid_path(rng, quick: bool) -> dict:
             del pr
         reqs = hybrid_requests(rng, cfg.vocab_size, n_req, gen,
                                n_long=2 if quick else 4)
+        if label == "dense":
+            dense_reqs = reqs
         res[label], n = check_hybrid(label, model, params, reqs, scfg,
                                      visits=label == "dense")
         for k in want:
@@ -5122,7 +5614,11 @@ def phase_hybrid_path(rng, quick: bool) -> dict:
     if got != want or min(got.values()) < 1 or not (
             k1_counts["decode"] and k1_counts["prefill"]):
         raise AssertionError(f"hybrid path launches {got} != {want}")
-    del model, params, dense_model, dense_params
+    del model, params
+    torch.cuda.empty_cache()
+    res["meshes"] = phase_family_meshes("12b", dense_model, dense_params,
+                                        scfg, dense_reqs)
+    del dense_model, dense_params
     torch.cuda.empty_cache()
     return res
 
@@ -5408,7 +5904,8 @@ def phase_moe_path(seed: int, quick: bool) -> dict:
     print_moe_blocks("dense", blocks)
     want["k2"] += L
     res["dense_blocks"] = dict(blocks, wall_s=time.time() - t0)
-    reqs = make_requests(rng, cfg.vocab_size, n_req, gen, 128, 448, 128)
+    reqs = dense_reqs = make_requests(rng, cfg.vocab_size, n_req, gen, 128,
+                                      448, 128)
     r = serve_moe(model, params, reqs, scfg)
     print_moe_serve(f"dense, capacity factor {cfg.capacity_factor}", r)
     want["k1"] += L * int(r["decode_calls"] + r["prefill_calls"])
@@ -5558,6 +6055,11 @@ def phase_moe_path(seed: int, quick: bool) -> dict:
     if got != want or min(got.values()) < 1 or not (
             k1_counts["decode"] and k1_counts["prefill"]):
         raise AssertionError(f"moe path launches {got} != {want}")
+    # the pruned models are gone: 13b's 1x2 and 2x2 copy the experts and
+    # the shared experts once more (one copy a model shard)
+    torch.cuda.empty_cache()
+    res["meshes"] = phase_family_meshes("13b", model, params, scfg,
+                                        dense_reqs)
     del model, params
     torch.cuda.empty_cache()
     return res
@@ -6574,6 +7076,7 @@ def main() -> int:
     lap("phases 8-8b")
     mamba_res = phase_mamba2_path(rng, args.quick)
     lap("phase 9")
+    phase_s["phase 9b (within phase 9)"] = mamba_res["meshes"]["seconds"]
     k3_entry["launches"] = mamba_res["k3_launches"]
     k3_entry["max_rel_err"] = k3_rel
     k3_entry["build"] = build_summary(k3_build)
@@ -6604,6 +7107,8 @@ def main() -> int:
     hybrid_res = phase_hybrid_path(np.random.default_rng([args.seed, 12, 1]),
                                    args.quick)
     lap("phase 12")
+    phase_s["phase 12b (within phase 12)"] = \
+        hybrid_res["meshes"]["seconds"]
     hl = hybrid_res["launches"]
     kernels[0]["launches_hybrid"] = hl["k1_decode"]
     kernels[1]["launches_hybrid"] = hl["k1_prefill"]
@@ -6613,9 +7118,14 @@ def main() -> int:
     k2_entry["launches_hybrid"] = hl["k2"]
     moe_res = phase_moe_path(args.seed, args.quick)
     lap("phase 13")
+    phase_s["phase 13b (within phase 13)"] = moe_res["meshes"]["seconds"]
     ml = moe_res["launches"]
     kernels[0]["launches_moe"] = ml["k1_decode"]
     kernels[1]["launches_moe"] = ml["k1_prefill"]
+    for k, entry in (("decode", kernels[0]), ("prefill", kernels[1])):
+        entry["launches_sharded_hybrid"] = \
+            hybrid_res["meshes"]["k1_launches"][k]
+        entry["launches_sharded_moe"] = moe_res["meshes"]["k1_launches"][k]
     k2_entry["launches_moe"] = ml["k2"]
     k4_entry["launches_moe"] = ml["k4"]
     # phase 14 draws its data from a generator of its own

@@ -20,6 +20,13 @@ mutable state is shared that way.
 - ``permute``: block bytes copied from one shard's pool to another's (the
   data-parallel engine's intra-mesh moves).
 
+The first three take a ``kind``: the tensor-parallel steps count the
+exchanges of the ssm, hybrid and moe families under their own kinds —
+``ssm-conv-all-gather`` (the pre-conv x channels), ``ssm-norm-all-reduce``
+(the gated norm's sums of squares), ``moe-router-all-gather`` (the router
+logits), ``moe-expert-all-gather`` (the expert outputs) and
+``moe-row-gather`` (every data replica's rows into one dispatch).
+
 Each call with more than one participant adds to a process-wide count of
 calls and bytes by kind: the bytes of the result as one participant holds
 it (the reference's per-device convention for HLO collectives), once per
@@ -67,30 +74,33 @@ def _replicate(t: torch.Tensor, parts: list[torch.Tensor]
     return [on[p.device] for p in parts]
 
 
-def all_reduce(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+def all_reduce(parts: list[torch.Tensor], kind: str = "all-reduce"
+               ) -> list[torch.Tensor]:
     """Sum over the participants, in their order, in the partials' dtype."""
     acc = parts[0]
     for p in parts[1:]:
         acc = acc + p.to(acc.device)
-    _count("all-reduce", acc, len(parts))
+    _count(kind, acc, len(parts))
     return _replicate(acc, parts)
 
 
-def all_gather(parts: list[torch.Tensor], dim: int) -> list[torch.Tensor]:
+def all_gather(parts: list[torch.Tensor], dim: int,
+               kind: str = "all-gather") -> list[torch.Tensor]:
     """The pieces concatenated along ``dim``, on every participant."""
     dev = parts[0].device
     out = parts[0] if len(parts) == 1 else \
         torch.cat([p.to(dev) for p in parts], dim=dim)
-    _count("all-gather", out, len(parts))
+    _count(kind, out, len(parts))
     return _replicate(out, parts)
 
 
-def broadcast_rows(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+def broadcast_rows(parts: list[torch.Tensor], kind: str = "row-broadcast"
+                   ) -> list[torch.Tensor]:
     """Every data replica's rows (dim 0) on every replica, in data order."""
     dev = parts[0].device
     out = parts[0] if len(parts) == 1 else \
         torch.cat([p.to(dev) for p in parts], dim=0)
-    _count("row-broadcast", out, len(parts))
+    _count(kind, out, len(parts))
     return _replicate(out, parts)
 
 

@@ -242,18 +242,25 @@ def place(x: torch.Tensor, mesh, spec: Spec, copy: bool = False) -> Sharded:
     """Cut ``x`` into one tensor per shard of ``mesh`` as ``spec`` says, each
     on its shard's device.  A split piece is a contiguous copy; a piece
     that is all of ``x`` shares its storage when it stays on ``x``'s device,
-    unless ``copy`` (pools: every shard owns its bytes)."""
+    unless ``copy`` (pools: every shard owns its bytes).  Without ``copy``,
+    the replicas of one split piece on one device (a tensor split over
+    ``model`` and replicated over ``data``) share one copy too."""
     spec = tuple(spec) + ((),) * (x.ndim - len(spec))
-    shards = []
+    shards, made = [], {}
     for k, dev in enumerate(mesh.devices.flat):
         i, j = divmod(k, mesh.shape["model"])
         idx = shard_slice(mesh, spec, x.shape, i, j)
+        key = (dev, tuple((s.start, s.stop) for s in idx))
+        if key in made and not copy:
+            shards.append(made[key])
+            continue
         piece = x[idx]
         whole = all(s == slice(None) for s in idx)
         if whole and not copy:
             shards.append(piece.to(dev))
         else:
             shards.append(piece.to(dev, copy=True).contiguous())
+        made[key] = shards[-1]
     return Sharded(mesh, spec, shards, tuple(x.shape))
 
 

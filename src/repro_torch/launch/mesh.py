@@ -75,16 +75,21 @@ def make_serve_mesh(data: int = 0, model: int = 1, devices=None) -> Mesh:
                 .reshape(data, model))
 
 
+def mesh_dims(spec: str) -> tuple[int, int]:
+    """'DxM' -> (D, M)."""
+    try:
+        data, model = (int(p) for p in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh wants 'DxM' or 'auto', got {spec!r}")
+    return data, model
+
+
 def parse_mesh(spec: str, devices=None) -> Mesh:
     """'DxM' (e.g. '4x1', '2x2') -> serving mesh; 'auto' -> all devices
     on the data axis."""
     if spec == "auto":
         return make_serve_mesh(devices=devices)
-    try:
-        data, model = (int(p) for p in spec.lower().split("x"))
-    except ValueError:
-        raise ValueError(f"--mesh wants 'DxM' or 'auto', got {spec!r}")
-    return make_serve_mesh(data, model, devices=devices)
+    return make_serve_mesh(*mesh_dims(spec), devices=devices)
 
 
 def serve_rules(cfg: ArchConfig, mesh, extra: dict | None = None

@@ -21,6 +21,9 @@
       --reduced --mesh 1x1 --device cpu
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+      --reduced --mesh 2x2 --device cpu
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
       --reduced --prune-ratio 0.5 [--obspa] --device cpu
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b \
@@ -84,11 +87,12 @@ finished prompt's KV blocks to one of ``--replicas`` decode-role replicas.
 The previous SIGTERM / SIGINT / SIGHUP handlers come back after the run.
 
 ``--mesh DxM`` (or ``auto``: every device on the data axis) serves over a
-(data, model) mesh of the CUDA devices — of the one CPU device with
-``--device cpu`` — and so does every replica and a ``--restore``d engine:
-request slots data-parallel, pools and heads tensor-parallel
-(``distributed.tensor_parallel``); a mesh larger than the devices fails
-with the reference's message.
+(data, model) mesh of the CUDA devices — with ``--device cpu``, over a
+logical mesh of D·M shards of the one CPU device — and so does every
+replica and a ``--restore``d engine: request slots data-parallel, pools
+and heads tensor-parallel (``distributed.tensor_parallel``), for every
+decoder family (dense, moe, ssm, hybrid); a mesh larger than the CUDA
+devices fails with the reference's message.
 
 ``generate`` (sequential, token-by-token over a contiguous cache) is kept as
 the correctness oracle the engine is tested against.
@@ -96,6 +100,7 @@ the correctness oracle the engine is tested against.
 from __future__ import annotations
 
 import argparse
+import math
 import signal
 import time
 
@@ -154,12 +159,15 @@ def drain_on_signal(stop: dict):
 
 def serve_mesh(args, device):
     """The ``--mesh`` mesh (None without the flag): over the CUDA devices,
-    or over ``device`` when it is the CPU."""
+    or, when ``device`` is the CPU, a logical mesh whose every shard is the
+    CPU ('auto': one shard)."""
     if not args.mesh:
         return None
-    from repro_torch.launch.mesh import parse_mesh
-    return parse_mesh(args.mesh,
-                      devices=None if device.type == "cuda" else [device])
+    from repro_torch.launch.mesh import mesh_dims, parse_mesh
+    if device.type == "cuda":
+        return parse_mesh(args.mesh)
+    n = 1 if args.mesh == "auto" else math.prod(mesh_dims(args.mesh))
+    return parse_mesh(args.mesh, devices=[device] * n)
 
 
 def build_engine(model, params, args, draft_model, draft_params,
@@ -406,7 +414,7 @@ def main(argv: list[str] | None = None) -> None:
         print(f"serving mesh: "
               f"{dict(zip(mesh.axis_names, mesh.devices.shape))}"
               f" | slots per data shard: "
-              f"{args.max_seqs // engines[0].scheduler.data_shards}")
+              f"{args.max_seqs // engines[0]._data_shards}")
     if args.spec_k > 0 and not engines[0].spec_active:
         print("speculative decoding gated off for this family "
               "(recurrent state cannot be rewound)")

@@ -138,6 +138,121 @@ def _combine_group(out_buf, slot, sw, keep, order, T: int):
     return y
 
 
+def route(logits: torch.Tensor, cfg, token_mask: torch.Tensor | None
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router logits (T, E) f32 -> (probs (T, E), top_w (T, k)
+    renormalised, top_e (T, k)); a masked token's experts are the virtual
+    expert ``E``."""
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = torch.topk(probs, cfg.top_k, dim=-1)         # (T, k)
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp(min=1e-9)
+    if token_mask is not None:
+        top_e = torch.where(token_mask.reshape(-1)[:, None], top_e,
+                            cfg.n_experts)
+    return probs, top_w, top_e
+
+
+def dispatch(xt: torch.Tensor, top_e: torch.Tensor, top_w: torch.Tensor,
+             cfg) -> tuple[torch.Tensor, list, int]:
+    """Grouped sort-based dispatch of xt (T, d): (buf (E, G, C, d), each
+    group's ``_dispatch_group`` results, C).  ``C`` counts every token of
+    the call, padding included, as the reference does."""
+    T = xt.shape[0]
+    G = max(cfg.moe_dispatch_groups, 1)
+    assert T % G == 0, (T, G)
+    TG = T // G
+    C = max(8, _capacity(cfg, T) // G)
+    parts = [slice(g * TG, (g + 1) * TG) for g in range(G)]
+    groups = [_dispatch_group(xt[p], top_e[p], top_w[p], cfg.n_experts, C)
+              for p in parts]
+    return torch.stack([gr[0] for gr in groups], 1), groups, C
+
+
+def experts(params: dict, buf: torch.Tensor) -> torch.Tensor:
+    """The expert SwiGLUs on a dispatch buffer (E', G, C, d), with the
+    weights of those E' experts -> (E', G, C, d)."""
+    gate = torch.einsum("egcd,edf->egcf", buf, params["w_gate"])
+    up = torch.einsum("egcd,edf->egcf", buf, params["w_up"])
+    h = F.silu(gate.float()).to(buf.dtype) * up
+    return torch.einsum("egcf,efd->egcd", h, params["w_down"])
+
+
+def combine(out_buf: torch.Tensor, groups: list, T: int) -> torch.Tensor:
+    """(E, G, C, d) expert outputs of ``dispatch``'s groups -> (T, d) f32."""
+    TG = T // len(groups)
+    return torch.cat([_combine_group(out_buf[:, g], slot, sw, keep, order,
+                                     TG)
+                      for g, (_, slot, _, sw, keep, order, _) in
+                      enumerate(groups)], 0)
+
+
+def shared_expert(sp: dict, xt: torch.Tensor) -> torch.Tensor:
+    """The shared experts' SwiGLU (T, d) in xt's dtype, before its gate."""
+    g_ = xt @ sp["w_gate"]
+    u = xt @ sp["w_up"]
+    hh = F.silu(g_.float()).to(xt.dtype) * u
+    return hh @ sp["w_down"]
+
+
+class Exchange:
+    """The exchanges between the shards of one dispatch, each the identity
+    on one device; ``distributed.tensor_parallel`` passes the mesh's
+    collectives.  ``router_logits`` joins the shards' router columns,
+    ``local_experts`` cuts shard ``k``'s experts from the dispatch buffer,
+    ``expert_outputs`` joins the shards' expert rows and ``shared_outputs``
+    adds the shards' parts of the shared experts."""
+
+    def router_logits(self, parts: list) -> list:
+        return parts
+
+    def local_experts(self, k: int, buf: torch.Tensor) -> torch.Tensor:
+        return buf
+
+    def expert_outputs(self, parts: list) -> list:
+        return parts
+
+    def shared_outputs(self, parts: list) -> list:
+        return parts
+
+
+ONE_DEVICE = Exchange()
+
+
+def moe_shards(ps: list[dict], cfg, xts: list[torch.Tensor], masks: list,
+               ex: Exchange = ONE_DEVICE
+               ) -> tuple[list[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """The block's composition over the shards of one dispatch: shard k
+    holds weights ``ps[k]``, every token of the dispatch ``xts[k]`` (T, d)
+    and its ``masks[k]`` (or None); ``ex`` joins what the weights split.
+    Routing, dispatch and combine run identically on every shard, and the
+    dispatch's dropped assignments are counted once.  Returns each shard's
+    output (T, d) f32 and the first shard's (probs, top_e)."""
+    T = xts[0].shape[0]
+    logits = ex.router_logits([xt.float() @ p["router"]        # (T, E) f32
+                               for xt, p in zip(xts, ps)])
+    outs, disp = [], []
+    for k, (xt, p, lg, mk) in enumerate(zip(xts, ps, logits, masks)):
+        probs, top_w, top_e = route(lg, cfg, mk)
+        buf, groups, C = dispatch(xt, top_e, top_w, cfg)        # (E, G, C, d)
+        outs.append(experts(p, ex.local_experts(k, buf)))
+        disp.append((groups, C))
+        if k == 0:
+            routed = probs, top_e
+    outs = ex.expert_outputs(outs)
+    ys = [combine(o, groups, T) for o, (groups, _) in zip(outs, disp)]
+
+    if masks[0] is not None:
+        groups, C = disp[0]
+        count_dropped([gr[-1] for gr in groups], C)
+
+    if cfg.n_shared_experts:
+        shared_out = ex.shared_outputs([shared_expert(p["shared"], xt)
+                                        for p, xt in zip(ps, xts)])
+        ys = [y + s.float() * torch.sigmoid(xt.float() @ p["shared"]["gate"])
+              for y, s, xt, p in zip(ys, shared_out, xts, ps)]
+    return ys, *routed
+
+
 def moe_block(params: dict, cfg, x: torch.Tensor,
               token_mask: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -150,54 +265,12 @@ def moe_block(params: dict, cfg, x: torch.Tensor,
     never see them and the scatter drops them.  ``C`` counts every token of
     the step, padding included, as the reference does."""
     B, S, d = x.shape
-    T = B * S
-    E, k = cfg.n_experts, cfg.top_k
-    G = max(cfg.moe_dispatch_groups, 1)
-    assert T % G == 0, (T, G)
-    xt = x.reshape(T, d)
-
-    # routing (f32)
-    logits = xt.float() @ params["router"]                      # (T, E)
-    probs = torch.softmax(logits, dim=-1)
-    top_w, top_e = torch.topk(probs, k, dim=-1)                 # (T, k)
-    top_w = top_w / top_w.sum(-1, keepdim=True).clamp(min=1e-9)
-    if token_mask is not None:
-        top_e = torch.where(token_mask.reshape(T)[:, None], top_e, E)
+    E = cfg.n_experts
+    (y,), probs, top_e = moe_shards([params], cfg, [x.reshape(B * S, d)],
+                                    [token_mask])
 
     # load-balance aux loss (Switch-style); a masked token's row is zero
     density = (top_e[:, :1] == torch.arange(E, device=x.device)
                ).float().mean(0)
     aux = E * (density * probs.mean(0)).sum() * cfg.router_aux_weight
-
-    # grouped sort-based dispatch
-    TG = T // G
-    C = max(8, _capacity(cfg, T) // G)
-    parts = [slice(g * TG, (g + 1) * TG) for g in range(G)]
-    groups = [_dispatch_group(xt[p], top_e[p], top_w[p], E, C)
-              for p in parts]
-    buf = torch.stack([gr[0] for gr in groups], 1)             # (E, G, C, d)
-
-    # expert SwiGLU
-    gate = torch.einsum("egcd,edf->egcf", buf, params["w_gate"])
-    up = torch.einsum("egcd,edf->egcf", buf, params["w_up"])
-    h = F.silu(gate.float()).to(x.dtype) * up
-    out_buf = torch.einsum("egcf,efd->egcd", h, params["w_down"])
-
-    y = torch.cat([_combine_group(out_buf[:, g], slot, sw, keep, order, TG)
-                   for g, (_, slot, _, sw, keep, order, _) in
-                   enumerate(groups)],
-                  0)                                            # (T, d) f32
-
-    if token_mask is not None:
-        count_dropped([gr[-1] for gr in groups], C)
-
-    if cfg.n_shared_experts:
-        sp = params["shared"]
-        g_ = xt @ sp["w_gate"]
-        u = xt @ sp["w_up"]
-        hh = F.silu(g_.float()).to(x.dtype) * u
-        shared_out = hh @ sp["w_down"]
-        sg = torch.sigmoid(xt.float() @ sp["gate"])
-        y = y + shared_out.float() * sg
-
     return y.to(x.dtype).reshape(B, S, d), aux

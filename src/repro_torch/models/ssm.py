@@ -18,8 +18,11 @@ below, the plain version.  Chunked prefill (``ssm_prefill``) needs an
 initial state in and the final state out, which the kernel does not take,
 so it runs ``ssd_reference`` on every device, as the reference does.
 ``SSM_AXES`` holds the reference's logical sharding axes of these
-parameters (``distributed.sharding`` maps them to mesh axes); serving the
-ssm family over a mesh larger than 1x1 is still to be ported.
+parameters (``distributed.sharding`` maps them to mesh axes).  The serving
+steps are staged (``decode_scan`` / ``prefill_scan`` between the
+projections and ``_gated`` / ``_out_proj``) so that the tensor-parallel
+steps of ``distributed.tensor_parallel`` run the same code on a shard's
+heads, with their collectives between the stages.
 """
 from __future__ import annotations
 
@@ -157,12 +160,23 @@ def _project(params, cfg, x):
 
 def _finish(params, cfg, y, z, xin):
     """D-skip, gated norm, out-projection.  y, z, xin (B, S, h, p)."""
+    return _out_proj(params, rms_norm(_gated(params, y, z, xin),
+                                      params["norm"], cfg.norm_eps))
+
+
+def _gated(params, y, z, xin):
+    """The D-skip and the gate: (B, S, h·p) in z's dtype, the gated norm's
+    input."""
     nh, hp = params["w_x"].shape[1], params["w_x"].shape[2]
     y = y + params["D"].float()[:, None] * xin.float()
     y = y * F.silu(z.float())
-    flat = y.reshape(y.shape[:-2] + (nh * hp,))
-    flat = rms_norm(flat.to(z.dtype), params["norm"], cfg.norm_eps)
-    y = flat.reshape(y.shape[:-2] + (nh, hp))
+    return y.reshape(y.shape[:-2] + (nh * hp,)).to(z.dtype)
+
+
+def _out_proj(params, flat):
+    """(B, S, h·p) normed -> (B, S, d)."""
+    nh, hp = params["w_x"].shape[1], params["w_x"].shape[2]
+    y = flat.reshape(flat.shape[:-1] + (nh, hp))
     return torch.einsum("bshp,hpd->bsd", y, params["w_out"])
 
 
@@ -182,12 +196,12 @@ def _split_conv(conv_out, nh: int, hp: int, n: int):
 
 def ssm_block(params: dict, cfg, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence SSD block.  x (B,S,d) -> (B,S,d)."""
-    B_, S, _ = x.shape
+    S = x.shape[1]
     nh, hp = params["w_x"].shape[1], params["w_x"].shape[2]
     n = params["w_B"].shape[1]
     z, xin, Bv, Cv, dt = _project(params, cfg, x)
 
-    conv_in = torch.cat([xin.reshape(B_, S, nh * hp), Bv, Cv], dim=-1)
+    conv_in = _conv_input(xin, Bv, Cv)
     conv_out = F.silu(_causal_conv(conv_in, params["conv_w"]).float()
                       ).to(x.dtype)
     xin, Bv, Cv = _split_conv(conv_out, nh, hp, n)
@@ -239,47 +253,74 @@ def ssm_prefill(params: dict, cfg, x: torch.Tensor, cache: SSMCache,
     SSD scan from ``cache.state``.  Returns (y (B, C, d), new cache) — y at
     padded positions is garbage the caller discards.
     """
-    B_, C, _ = x.shape
-    nh, hp = params["w_x"].shape[1], params["w_x"].shape[2]
+    z, xin, Bv, Cv, dt = _project(params, cfg, x)
+    y, xin, new = prefill_scan(params, cfg, _conv_input(xin, Bv, Cv), dt,
+                               cache, valid)
+    return _finish(params, cfg, y, z, xin), new
+
+
+def _conv_input(xin, Bv, Cv):
+    """The conv's input channels [x (h·p), B (n), C (n)]."""
+    return torch.cat([xin.reshape(xin.shape[:2] + (-1,)), Bv, Cv], dim=-1)
+
+
+def prefill_scan(params, cfg, conv_in, dt, cache: SSMCache, valid,
+                 heads: slice = slice(None)):
+    """The conv and the SSD scan of a prefill chunk.  ``conv_in`` holds
+    every x channel; ``params``, ``dt`` and ``cache.state`` the heads
+    ``heads`` of them (all by default: a tensor-parallel shard passes its
+    own).  Returns (y (B, C, h', p) f32, x after the conv (B, C, h', p),
+    the new cache)."""
+    C = conv_in.shape[1]
+    hp = params["w_x"].shape[2]
     n = params["w_B"].shape[1]
     K = params["conv_w"].shape[0]
-    z, xin, Bv, Cv, dt = _project(params, cfg, x)
-
-    conv_in = torch.cat([xin.reshape(B_, C, nh * hp), Bv, Cv], dim=-1)
     win = torch.cat([cache.conv.to(conv_in.dtype), conv_in], dim=1)
-    conv_out = F.silu(_conv_valid(win, params["conv_w"]).float()).to(x.dtype)
+    conv_out = F.silu(_conv_valid(win, params["conv_w"]).float()
+                      ).to(conv_in.dtype)
     # next chunk's left context: the last K-1 *valid* rows of the window
-    rows = valid.long()[:, None] + torch.arange(K - 1, device=x.device)
+    rows = valid.long()[:, None] + torch.arange(K - 1, device=win.device)
     new_conv = torch.gather(win, 1, rows[..., None].expand(
         -1, -1, win.shape[-1]))
 
-    xin, Bv, Cv = _split_conv(conv_out, nh, hp, n)
-    inchunk = torch.arange(C, device=x.device)[None, :, None] \
+    nh_all = (conv_out.shape[-1] - 2 * n) // hp
+    xin, Bv, Cv = _split_conv(conv_out, nh_all, hp, n)
+    xin = xin[:, :, heads]
+    inchunk = torch.arange(C, device=win.device)[None, :, None] \
         < valid[:, None, None]
     dt = torch.where(inchunk, dt, 0.0)
     A = -torch.exp(params["A_log"].float())
     xdt = xin.float() * dt[..., None]
     y, state = ssd_reference(xdt, dt, A, Bv, Cv, chunk=C,
                              init_state=cache.state)
-    out = _finish(params, cfg, y, z, xin)
-    return out, SSMCache(new_conv, state)
+    return y, xin, SSMCache(new_conv, state)
 
 
 def ssm_decode(params: dict, cfg, x: torch.Tensor, cache: SSMCache
                ) -> tuple[torch.Tensor, SSMCache]:
     """Single-token recurrent step.  x (B,1,d)."""
-    B_ = x.shape[0]
-    nh, hp = params["w_x"].shape[1], params["w_x"].shape[2]
-    n = params["w_B"].shape[1]
     z, xin, Bv, Cv, dt = _project(params, cfg, x)
+    y, xin1, new = decode_scan(params, cfg, _conv_input(xin, Bv, Cv), dt,
+                               cache)
+    out = _finish(params, cfg, y[:, None], z, xin1[:, None].float())
+    return out, new
 
-    conv_in = torch.cat([xin.reshape(B_, 1, nh * hp), Bv, Cv], dim=-1)
+
+def decode_scan(params, cfg, conv_in, dt, cache: SSMCache,
+                heads: slice = slice(None)):
+    """The conv and the recurrence of one decode step, ``prefill_scan``'s
+    counterpart: conv_in (B, 1, ch) holds every x channel.  Returns (y (B,
+    h', p) f32, x after the conv (B, h', p), the new cache)."""
+    hp = params["w_x"].shape[2]
+    n = params["w_B"].shape[1]
     win = torch.cat([cache.conv, conv_in], dim=1)              # (B, K, ch)
     conv_out = torch.einsum("bkc,kc->bc", win, params["conv_w"])
-    conv_out = F.silu(conv_out.float()).to(x.dtype)
+    conv_out = F.silu(conv_out.float()).to(conv_in.dtype)
     new_conv = win[:, 1:]
 
-    xin1, Bv1, Cv1 = _split_conv(conv_out, nh, hp, n)
+    nh_all = (conv_out.shape[-1] - 2 * n) // hp
+    xin1, Bv1, Cv1 = _split_conv(conv_out, nh_all, hp, n)
+    xin1 = xin1[:, heads]
     Bv1, Cv1 = Bv1.float(), Cv1.float()
     dt1 = dt[:, 0]                                             # (B, h)
 
@@ -288,6 +329,4 @@ def ssm_decode(params: dict, cfg, x: torch.Tensor, cache: SSMCache
     dBx = torch.einsum("bh,bn,bhp->bhpn", dt1, Bv1, xin1.float())
     state = cache.state * dA[..., None, None] + dBx
     y = torch.einsum("bhpn,bn->bhp", state, Cv1)               # (B, h, p)
-
-    out = _finish(params, cfg, y[:, None], z, xin1[:, None].float())
-    return out, SSMCache(new_conv, state)
+    return y, xin1, SSMCache(new_conv, state)

@@ -405,6 +405,39 @@ def _keep_rows(rows: torch.Tensor | None, new, old: torch.Tensor
     return torch.where(rows.reshape((-1,) + (1,) * (old.ndim - 1)), new, old)
 
 
+def ssm_decode_rows(sp: dict, cfg: ArchConfig, hn: torch.Tensor, lc: dict,
+                    fresh: torch.Tensor, active: torch.Tensor | None,
+                    stages=None) -> torch.Tensor:
+    """A paged decode step's SSM half on one layer's per-slot state ``lc``
+    (``conv``, ``state``, written in place): the ``fresh`` rows start from
+    zeros, and only the ``active`` rows (all when None) keep their new
+    state.  ``stages`` is the tensor-parallel steps' hook (``None``: the
+    whole SSD block on this tensor)."""
+    sc = ssm_mod.SSMCache(_keep_rows(fresh, 0.0, lc["conv"]),
+                          _keep_rows(fresh, 0.0, lc["state"]))
+    out, new = ssm_mod.ssm_decode(sp, cfg, hn, sc) if stages is None \
+        else stages(sc)
+    lc["conv"].copy_(_keep_rows(active, new.conv, lc["conv"]))
+    lc["state"].copy_(_keep_rows(active, new.state, lc["state"]))
+    return out
+
+
+def ssm_chunk_rows(sp: dict, cfg: ArchConfig, hn: torch.Tensor, lc: dict,
+                   rows: torch.Tensor, fresh: torch.Tensor, fed: torch.Tensor,
+                   valid: torch.Tensor, stages=None) -> torch.Tensor:
+    """A prefill / verify chunk's SSM half on the state rows ``rows`` of
+    ``lc``: ``fresh`` rows start from zeros, and rows with no token
+    (``fed`` False) keep their state."""
+    conv0, state0 = lc["conv"][rows], lc["state"][rows]
+    sc = ssm_mod.SSMCache(_keep_rows(fresh, 0.0, conv0),
+                          _keep_rows(fresh, 0.0, state0))
+    out, new = ssm_mod.ssm_prefill(sp, cfg, hn, sc, valid) \
+        if stages is None else stages(sc)
+    lc["conv"][rows] = _keep_rows(fed, new.conv, conv0)
+    lc["state"][rows] = _keep_rows(fed, new.state, state0)
+    return out
+
+
 def cache_axes(cfg: ArchConfig, long_context: bool = False) -> dict:
     """Logical axes of the contiguous cache tree.  "kv_seq" defaults to
     replicated; rules override it for long-context (data) or kv-replicated
@@ -548,12 +581,7 @@ def paged_decode_step(params: dict, cfg: ArchConfig, cache: dict,
         return a_out
 
     def ssm_fn(sp, hn, lc):
-        sc = ssm_mod.SSMCache(_keep_rows(fresh, 0.0, lc["conv"]),
-                              _keep_rows(fresh, 0.0, lc["state"]))
-        out, new = ssm_mod.ssm_decode(sp, cfg, hn, sc)
-        lc["conv"].copy_(_keep_rows(active, new.conv, lc["conv"]))
-        lc["state"].copy_(_keep_rows(active, new.state, lc["state"]))
-        return out
+        return ssm_decode_rows(sp, cfg, hn, lc, fresh, active)
 
     h = _run_decode_layers(params, cfg, cache, x, attn_fn, ssm_fn,
                            None if active is None else active[:, None])
@@ -586,13 +614,7 @@ def _paged_chunk_forward(params: dict, cfg: ArchConfig, cache: dict,
     rows = slots.long()
 
     def ssm_fn(sp, hn, lc):
-        conv0, state0 = lc["conv"][rows], lc["state"][rows]
-        sc = ssm_mod.SSMCache(_keep_rows(fresh, 0.0, conv0),
-                              _keep_rows(fresh, 0.0, state0))
-        out, new = ssm_mod.ssm_prefill(sp, cfg, hn, sc, valid)
-        lc["conv"][rows] = _keep_rows(fed, new.conv, conv0)
-        lc["state"][rows] = _keep_rows(fed, new.state, state0)
-        return out
+        return ssm_chunk_rows(sp, cfg, hn, lc, rows, fresh, fed, valid)
 
     inchunk = torch.arange(tokens.shape[1], device=valid.device
                            )[None, :] < valid[:, None]          # real tokens

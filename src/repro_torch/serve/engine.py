@@ -160,8 +160,13 @@ engine.  Modes (the reference's rule):
 The sampled tokens of every program join on the mesh's first device, so a
 step still has one upload per program call and ONE fetch.  The paged-
 attention kernel is launched once per shard (through the shard wrap in
-gspmd mode).  The ssm, hybrid and moe families serve on a 1x1 mesh only
-(its one shard runs the unsharded step); block hand-off needs ``mesh=None``.
+gspmd mode).  Every decoder family serves on a mesh: the ssm and hybrid
+families always in gspmd mode (their per-slot state splits over ``data``
+inside the one tensor-parallel program), the moe family in dp mode on a
+pure data mesh whose slots divide it — each data shard then dispatches its
+own rows, so its expert capacity comes from its own token count, the
+reference's rule — and in gspmd mode otherwise.  Block hand-off needs
+``mesh=None``.
 """
 from __future__ import annotations
 
@@ -399,11 +404,10 @@ class _Inflight:
 @dataclasses.dataclass
 class _Program:
     """One device program of an engine step: all slots on one device (no
-    mesh, or the one shard of a 1x1 mesh whose family is not partitioned),
-    one data shard's slots on its pool replica (dp), or all slots over the
-    whole mesh (gspmd: ``params`` / ``cache`` are trees of ``Sharded`` and
-    the steps those of ``distributed.tensor_parallel``).  ``rows`` are the
-    slots it serves, ``gen`` its sampling generator."""
+    mesh), one data shard's slots on its pool replica (dp), or all slots
+    over the whole mesh (gspmd: ``params`` / ``cache`` are trees of
+    ``Sharded`` and the steps those of ``distributed.tensor_parallel``).
+    ``rows`` are the slots it serves, ``gen`` its sampling generator."""
     rows: slice
     device: torch.device
     params: Any
@@ -508,11 +512,6 @@ class Engine:
         if mesh is None:
             return
         cfg = self.model.cfg
-        if mesh.size > 1 and (self._recurrent or cfg.n_experts):
-            raise NotImplementedError(
-                f"{cfg.name}: serving the {cfg.family} family over a mesh "
-                f"larger than 1x1 is not ported yet (ROADMAP.md Queue 1: "
-                f"mesh serving of the ssm, hybrid and moe families)")
         from repro_torch.launch.mesh import serve_rules
         self.rules = serve_rules(cfg, mesh)
         bspec = self.rules.spec(("serve_batch",),
@@ -542,7 +541,8 @@ class Engine:
         """The step's device programs (``_Program``): one per data shard in
         dp mode, else one."""
         spec = self.spec_active
-        if self.shard_mode == "gspmd" and tp.supports(self.model.cfg):
+        if self.shard_mode == "gspmd":
+            assert tp.supports(self.model.cfg), self.model.cfg.family
             return [_Program(slice(None), self.device, self.params,
                              self.cache, self.draft_params,
                              self.draft_cache if spec else None,
@@ -551,11 +551,11 @@ class Engine:
             return [_Program(slice(None), self.device, self.params,
                              self.cache, self.draft_params,
                              self.draft_cache if spec else None)]
-        d = self._data_shards if self.shard_mode == "dp" else 1
+        d = self._data_shards
         n = self.cfg.max_seqs // d
         return [_Program(
-            slice(k * n, (k + 1) * n) if d > 1 else slice(None),
-            self.mesh.devices.flat[k], local_tree(self.params, k),
+            slice(k * n, (k + 1) * n), self.mesh.devices.flat[k],
+            local_tree(self.params, k),
             local_tree(self.cache, k),
             local_tree(self.draft_params, k) if spec else None,
             local_tree(self.draft_cache, k) if spec else None)
@@ -585,9 +585,12 @@ class Engine:
 
     def replica_audit(self) -> dict:
         """The mesh pools' audit: every shard's pool tensors are distinct
-        storage, and (gspmd mode) the data replicas of each model shard's
-        pools are byte-equal outside the null block 0 (idle rows' writes
-        land there in any order, and nothing reads it).  Raises
+        storage, and (gspmd mode) the replicas of each pool are byte-equal:
+        its data replicas where it is not split over ``data``, its model
+        replicas where it is not split over ``model`` (the ``conv`` window
+        always; ``state`` and the KV pools where their heads replicate).
+        The KV pools are compared outside the null block 0 (idle rows'
+        writes land there in any order, and nothing reads it).  Raises
         AssertionError; returns the counts it checked."""
         if self.mesh is None:
             return {"shards": 1, "replica_pairs": 0}
@@ -604,18 +607,34 @@ class Engine:
                     ptrs.add(t.data_ptr())
             if self.shard_mode != "gspmd":
                 continue
-            for k in range(m, len(shards)):
-                for n, t in shards[k].items():
-                    ref = shards[k % m][n]
-                    assert torch.equal(t[:, 1:].view(torch.uint8), ref[
-                        :, 1:].view(torch.uint8).to(t.device)), \
-                        f"data replica {k // m} of pool {n} differs"
+            for n, leaf in tree.items():
+                split = {a for axes in leaf.spec for a in axes}
+                kv = n not in ("conv", "state")
+                for k in range(len(shards)):
+                    i, j = divmod(k, m)
+                    r = (i if "data" in split else 0) * m + \
+                        (j if "model" in split else 0)
+                    if r == k:
+                        continue
+                    t, ref = shards[k][n], shards[r][n]
+                    if kv:
+                        t, ref = t[:, 1:], ref[:, 1:]
+                    what = f"data replica {i}" if r % m == j else \
+                        f"model replica {j}"
+                    assert torch.equal(t.view(torch.uint8), ref.view(
+                        torch.uint8).to(t.device)), \
+                        f"{what} of pool {n} differs"
                     pairs += 1
         return {"shards": len(ptrs), "replica_pairs": pairs}
 
     @property
     def _recurrent(self) -> bool:
         return self.model.cfg.family == "ssm" or self.model.cfg.hybrid
+
+    @property
+    def _masked(self) -> bool:
+        """Whether the decode step reads the ``active`` mask."""
+        return self._recurrent or bool(self.model.cfg.n_experts)
 
     @property
     def can_handoff_blocks(self) -> bool:
@@ -1447,9 +1466,10 @@ class Engine:
             fetch["out"], fetch["acc"] = self._spec_decode(
                 plan, tokens, positions, temps, active, tables, spec_meta)
             return
-        # only the recurrent state reads the mask: the dense step is sent
-        # none, so it uploads and casts nothing more
-        extra = [active] if self._recurrent else []
+        # only the recurrent state and the expert dispatch (idle rows take
+        # no capacity) read the mask: the dense step is sent none, so it
+        # uploads and casts nothing more
+        extra = [active] if self._masked else []
         feeds = [n for n in ("dec", "pre") if feed[n].any()]
         extra += [feed[n] for n in feeds]
         sampled = bool((temps > 0).any())
@@ -1460,7 +1480,7 @@ class Engine:
             r = prog.rows
             tok, pos, tab, *rest = self._uploader(prog)(
                 tokens[r], positions[r], tables[r], *(e[r] for e in extra))
-            act = rest.pop(0).bool() if self._recurrent else None
+            act = rest.pop(0).bool() if self._masked else None
             for n in feeds:
                 tok = torch.where(rest.pop(0).bool(),
                                   prev.fetch[n][r].to(prog.device), tok)

@@ -483,15 +483,19 @@ def test_snapshot_on_a_dp_mesh_restores_onto_one(tmp_path):
 
 
 def test_recurrent_and_moe_meshes_wait():
-    """ssm / moe meshes above 1x1 raise, naming the ROADMAP item; reduced
-    Mamba-2 on a 1x1 mesh equals its no-mesh tokens."""
-    for arch in ("mamba2-1.3b", "qwen2-moe-a2.7b", "hymba-1.5b"):
+    """The ssm, hybrid and moe families no longer wait for their mesh
+    slice: each builds on a 2x1 mesh in the reference's mode (gspmd for
+    the recurrent families, dp for moe); reduced Mamba-2 on a 1x1 mesh
+    equals its no-mesh tokens.  (Every mesh of these families:
+    ``test_torch_serve_sharded_families.py``.)"""
+    for arch, mode in (("mamba2-1.3b", "gspmd"), ("qwen2-moe-a2.7b", "dp"),
+                       ("hymba-1.5b", "gspmd")):
         cfg = reduced(get_config(arch))
         m = build(cfg)
         p = m.init(0, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            Engine(m, p, ServeConfig(max_seqs=2, block_size=4, max_len=16),
-                   device="cpu", mesh=mesh(2, 1))
+        eng = Engine(m, p, ServeConfig(max_seqs=2, block_size=4, max_len=16),
+                     device="cpu", mesh=mesh(2, 1))
+        assert eng.shard_mode == mode, arch
         if arch != "mamba2-1.3b":
             continue
         rows = prompts(cfg.vocab_size, n=3)
@@ -514,6 +518,12 @@ def test_cli_mesh_on_the_cpu(capsys):
     assert "serving mesh: {'data': 1, 'model': 1} | slots per data " \
            "shard: 2" in out
     assert "served 3 requests / 12 new tokens" in out
-    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
-        cli.main(argv + ["--mesh", "2x1"])
+    # on the CPU a mesh is logical: 2x1 is two shards of the one device
+    cli.main(argv + ["--mesh", "2x1"])
+    out = capsys.readouterr().out
+    assert "serving mesh: {'data': 2, 'model': 1} | slots per data " \
+           "shard: 1" in out
+    assert "served 3 requests / 12 new tokens" in out
+    with pytest.raises(ValueError, match="wants 'DxM' or 'auto'"):
+        cli.main(argv + ["--mesh", "2"])
     assert {s: signal.getsignal(s) for s in prev} == prev
